@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled at
 first use into ``build/kernels/lib<name>-<hash>.so`` under the repository
-root, for ``sm_90a`` (Hopper). The hash covers the sources and the flags,
+root, for ``sm_90a`` (Hopper); ``load_all`` builds several sources at
+once, one ``nvcc`` process each. The hash covers the sources and the flags,
 so an edited kernel is rebuilt and a stale library is never loaded. A
 build writes to a temporary name and renames it into place, so processes
 that build at once do not read a half-written library.
@@ -37,32 +38,51 @@ def _nvcc() -> str:
     return path
 
 
+def _lib_paths(names) -> dict[str, Path]:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + f.read_bytes())
+    return {name: BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+            for name in names}
+
+
+def load_all(names: list[str]) -> list[ctypes.CDLL]:
+    """The shared libraries built from ``csrc/<name>.cu`` for each name,
+    the missing ones built at once, one ``nvcc`` process a source."""
+    with _lock:
+        paths = _lib_paths(n for n in names if n not in _loaded)
+        builds = []
+        for name, lib_path in paths.items():
+            if lib_path.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            src = CSRC / f"{name}.cu"
+            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            builds.append((src, proc, tmp, lib_path))
+        failed = []
+        for src, proc, tmp, lib_path in builds:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src}:\n{out}")
+                continue
+            lib_path.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib_path)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, lib_path in paths.items():
+            log_path = lib_path.with_suffix(".log")
+            log = log_path.read_text() if log_path.exists() else ""
+            _loaded[name] = (ctypes.CDLL(str(lib_path)), log)
+        return [_loaded[name][0] for name in names]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built if needed."""
-    with _lock:
-        if name in _loaded:
-            return _loaded[name][0]
-        src = CSRC / f"{name}.cu"
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for f in sorted(CSRC.glob("*.cu*")):
-            h.update(f.name.encode() + f.read_bytes())
-        lib_path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
-        log_path = lib_path.with_suffix(".log")
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            r = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
-            log_path.write_text(r.stdout + r.stderr)
-            os.replace(tmp, lib_path)
-        log = log_path.read_text() if log_path.exists() else ""
-        lib = ctypes.CDLL(str(lib_path))
-        _loaded[name] = (lib, log)
-        return lib
+    return load_all([name])[0]
 
 
 def build_log(name: str) -> str:

@@ -14,6 +14,30 @@ import torch
 NEG = -1.0e30
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """q [B,H,S,D]; k, v [B,KV,T,D] -> [B,H,S,D]."""
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, KV, G, S, D).float() * (D ** -0.5)
+    s = torch.einsum("bkgsd,bktd->bkgst", qr, k.float())
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    # in place: at full width the score tensor is the largest allocation
+    s.masked_fill_(~mask, NEG)
+    p = torch.softmax(s, dim=-1)
+    del s
+    p.masked_fill_(~mask, 0.0)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
 def flash_decode_ref(q, k_cache, v_cache, cache_pos, q_pos, *,
                      window: Optional[int] = None):
     """q [B,H,D]; caches [B,KV,W,D]; cache_pos [B,W]; q_pos [B]."""

@@ -4,7 +4,8 @@ torch tensors with the JAX tree's exact keys.
 ``init_tree`` draws from a ``torch.Generator`` and cannot reproduce
 ``jax.random``; ``params_from_numpy`` carries a JAX tree (after
 ``np.asarray`` on each leaf) into the port, which is how the parity tests
-hand both packages the same weights.
+hand both packages the same weights. Both place their tensors on the CUDA
+card unless the caller names another device (``resolve_device``).
 """
 
 from __future__ import annotations
@@ -61,6 +62,16 @@ def tree_index(tree: Any, i: int) -> Any:
     return tree_map(lambda t: t[i], tree)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; None means the CUDA card, and a
+    CUDA device where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found (pass device='cpu' to run "
+                           "the plain path on the CPU)")
+    return dev
+
+
 def torch_dtype(name: str) -> torch.dtype:
     dt = getattr(torch, str(name), None)
     if not isinstance(dt, torch.dtype):
@@ -96,9 +107,12 @@ def _init_leaf(spec: ParamSpec, dtype: torch.dtype, generator: torch.Generator,
 
 def init_tree(generator: torch.Generator, specs: Any,
               param_dtype: str = "float32", device=None) -> Any:
-    """Materialize real parameters, leaves drawn in sorted-key order.
+    """Materialize real parameters, leaves drawn in sorted-key order, on
+    ``device`` (None: the CUDA card).
 
     ``generator`` must live on ``device`` (``torch.randn`` requires it)."""
+    device = resolve_device(device)
+
     def build(tree: Any) -> Any:
         # draw in sorted-key order, the order jax.tree_util flattens in
         if isinstance(tree, dict):
@@ -125,5 +139,7 @@ def _from_numpy(a: Any, device) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, *, device=None) -> Any:
     """A tree of numpy arrays (e.g. a JAX ``init_tree`` after ``np.asarray``)
-    as the port's tree: same keys, same values, tensors on ``device``."""
+    as the port's tree: same keys, same values, tensors on ``device``
+    (None: the CUDA card)."""
+    device = resolve_device(device)
     return tree_map(lambda a: _from_numpy(a, device), tree)

@@ -107,3 +107,14 @@ def mlp(params: dict, x: torch.Tensor, act: str, sharder=None) -> torch.Tensor:
     h = F.gelu(h + params["b1"].to(dt), approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, params["w2"].to(dt)) \
         + params["b2"].to(dt)
+
+
+# --------------------------------------------------------------------------- #
+# modality frontends (stubs, as in the JAX package: precomputed embeddings)
+# --------------------------------------------------------------------------- #
+def frontend_proj_spec(d_in: int, d: int) -> ParamSpec:
+    return ParamSpec((d_in, d), ("embed", None), init="fan_in")
+
+
+def frontend_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsi,id->bsd", x, w.to(x.dtype))

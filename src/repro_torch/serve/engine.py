@@ -34,7 +34,7 @@ from repro_torch.core.sync import CoopChannel, CoopEvent
 from repro_torch.core.task import Job
 from repro_torch.core.threads import UsfRuntime, UsfTaskError
 from repro_torch.launch.inputs import make_decode_inputs
-from repro_torch.models.base import init_tree
+from repro_torch.models.base import init_tree, resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.sharding import Sharder
 from repro_torch.train.step import make_serve_step
@@ -68,14 +68,6 @@ class Request:
                 and self.finished > self.deadline)
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("InferenceServer: no CUDA device found (pass "
-                           "device='cpu' to run the plain path on the CPU)")
-    return dev
-
-
 class InferenceServer:
     """One model server (a Job): continuous batching over `max_batch` KV
     slots; requests are prefilled teacher-forced through the decode path
@@ -92,7 +84,7 @@ class InferenceServer:
         self.name = name
         self.cfg = cfg
         self.usf = usf
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.job = Job(name, nice=nice, share=share)
         self._policy = policy
         self.lease = None  # set on start()

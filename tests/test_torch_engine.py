@@ -112,7 +112,8 @@ def test_engine_matches_jax_engine_token_for_token(arch):
     try:
         got = _serve(usf, InferenceServer("torch", tcfg, usf, max_batch=2,
                                           max_len=16, device="cpu",
-                                          params=params_from_numpy(params)),
+                                          params=params_from_numpy(params,
+                                                           device="cpu")),
                      prompts, 5, Request, Job)
     finally:
         usf.shutdown(timeout=5.0)

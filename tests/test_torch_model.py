@@ -55,8 +55,8 @@ def test_attention_decode_matches_jax(arch, window):
                                       jattn.attn_specs(jcfg)))}, rng)["attn"]
     jcache = j_init_tree(jax.random.PRNGKey(1),
                          jattn.cache_specs(jcfg, B, max_len, window=window))
-    tcache = params_from_numpy(_np_tree(jcache))
-    tparams = params_from_numpy(params)
+    tcache = params_from_numpy(_np_tree(jcache), device="cpu")
+    tparams = params_from_numpy(params, device="cpu")
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     for t in range(steps):
         x = rng.normal(size=(B, 1, jcfg.d_model)).astype(np.float32)
@@ -99,7 +99,7 @@ def test_decode_step_matches_jax(name):
             params["layers"]["attn"][k] = rng.normal(
                 scale=0.5, size=params["layers"]["attn"][k].shape
             ).astype(np.float32)
-    tparams = tmodel.compute_params(params_from_numpy(params))
+    tparams = tmodel.compute_params(params_from_numpy(params, device="cpu"))
     assert [t.shape for t in tree_leaves(tparams)] == [
         a.shape for a in jax.tree_util.tree_leaves(params)]
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
@@ -140,7 +140,8 @@ def test_compute_params_casts_weights_but_not_norms():
     model = t_build_model(cfg)
     from repro_torch.models.base import init_tree
 
-    params = init_tree(torch.Generator().manual_seed(0), model.param_specs())
+    params = init_tree(torch.Generator().manual_seed(0), model.param_specs(),
+                       device="cpu")
     cp = model.compute_params(params)
     assert cp["layers"]["attn"]["wq"].dtype == torch.bfloat16
     assert cp["embed"]["tok"].dtype == torch.bfloat16

@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width with random weights from a
-seed: serving smollm-360m (decode, kernel K1) and the full-sequence
-forward of smollm-360m and hubert-xlarge (prefill, kernel K2). Checks every
-hand-written kernel on them against its plain torch version. Phases, each
-fatal on failure:
+Drives the port's paths at full width with random weights from a seed:
+serving smollm-360m and deepseek-moe-16b (decode: K1, and K3 for the
+experts), the full-sequence forward of smollm-360m, hubert-xlarge and
+deepseek-moe-16b (prefill: K2, and K3), and the forward of mamba2-2.7b
+(K4). Checks every hand-written kernel on them against its plain torch
+version. Phases, each fatal on failure:
 
-1. build   nvcc builds the paths' kernels from src/repro_torch/kernels/csrc,
+1. build   nvcc builds the four kernels from src/repro_torch/kernels/csrc,
            one process a source, all at once, and ptxas reports registers,
            shared memory and spills.
 2. kernels each kernel against its plain version on the card, fp32 with
            rtol=atol=1e-4 (the sums run in another order) and bf16 with
            2e-2 (one bf16 rounding of the output): K1 at the decode cases,
            K2 at the cases of the CPU tests and at the smollm-360m, hubert
-           and danube prefill shapes and at non-divisible lengths.
+           and danube prefill shapes and at non-divisible lengths; K3 at
+           the CPU tests' shapes, deepseek's decode and prefill shapes and
+           ragged ones, contiguous and row-strided; K4 at the CPU tests'
+           shapes, a ragged chunk and mamba2-2.7b's full width, against the
+           exact recurrence and the model's chunked algebra, both in fp32,
+           elementwise (see `ssd_close`).
 3. serve   two full smollm-360m InferenceServers and a Gateway on the port's
            UsfRuntime(Topology(2,1), SchedCoop) answer four clients; the
            kernel's launch count must equal n_layers x engine steps.
@@ -41,6 +47,27 @@ fatal on failure:
            yardstick, never called by the port) at the smollm-360m and
            hubert prefill shapes and at a 32k-token row; the full-width
            forward's wall time and tokens/s; a profile of one forward.
+8. moe     deepseek-moe-16b (28 layers, 64 experts top-6 + 2 shared),
+           drawn in bf16: served as in 3 (K1 = 28 x steps, K3 = 3 x 27 x
+           steps); its forward at B=4, S=2048 (28 K2 and 81 K3 launches),
+           every K3 call against the plain version, and the logits against
+           the plain expert product with the plain run's routing pinned to
+           K3's (2e-2 of the largest logit: unpinned, bf16 near ties flip
+           the top-6); K3, plain and torch.bmm times at the decode and
+           prefill shapes; decode step and forward times with the kernels
+           and with their plain versions, and profiles.
+9. ssm     mamba2-2.7b (64 layers), fp32 weights and a bf16 copy: its
+           forward at B=4, S=2048 (64 K4 launches); every K4 call against
+           the exact recurrence; on weights with Mamba-2's published dt and
+           A init (`mamba2.published_dt_A`: the specs' init is chaotic at
+           this depth, ROADMAP Queue 3), the fp32 forward (K4) against
+           teacher-forced decode at every position of a 768-token prompt
+           (three chunks, so the state carried between chunks reaches the
+           logits) within 2e-2 of the largest logit, and every K4 call of
+           the bf16 forward against the recurrence; K4 times and bound,
+           forward times with K4 and the chunked scan, a profile, and the
+           decode step's time. Each model's weights are freed before the
+           next model's phase.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -51,7 +78,9 @@ result. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,7 +98,11 @@ DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention.py:67"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:88"
-KERNELS = ("decode_attention", "flash_attention")
+GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
+GMM_REPLACES = "src/repro/kernels/moe_gmm.py:44"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:75"
+KERNELS = ("decode_attention", "flash_attention", "moe_gmm", "ssd_scan")
 
 
 def log(msg: str) -> None:
@@ -106,16 +139,23 @@ def plain_decode(q, k, v, cpos, qpos, *, window=None):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Route the model's decode attention through the plain version."""
+def plain_ops(**fns):
+    """Route each named ops.<name> through the given plain version."""
     from repro_torch.kernels import ops
 
-    kernel = ops.flash_decode
-    ops.flash_decode = plain_decode
+    saved = {name: getattr(ops, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(ops, name, fn)
     try:
         yield
     finally:
-        ops.flash_decode = kernel
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def plain_attention():
+    """Route the model's decode attention through the plain version."""
+    return plain_ops(flash_decode=plain_decode)
 
 
 # --------------------------------------------------------------------------- #
@@ -214,17 +254,9 @@ def plain_flash(q, k, v, *, causal=True, window=None):
                                    window=window).transpose(1, 2)
 
 
-@contextlib.contextmanager
 def plain_prefill_attention():
     """Route the model's full-sequence attention through the plain version."""
-    from repro_torch.kernels import ops
-
-    kernel = ops.flash_attention
-    ops.flash_attention = plain_flash
-    try:
-        yield
-    finally:
-        ops.flash_attention = kernel
+    return plain_ops(flash_attention=plain_flash)
 
 
 FLASH_CASES = [
@@ -285,20 +317,24 @@ def phase_flash_kernels(dev) -> float:
     return worst
 
 
-def phase_serve(dev, cfg, *, prompt_len=32, max_new=32, clients=4):
-    """Two servers + a gateway answer `clients` requests; returns stats."""
+def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4):
+    """Two servers + a gateway answer `clients` requests; returns stats.
+
+    ``params`` (one tree both servers share) replaces each server's own
+    seeded initialisation."""
     import torch
 
     from repro_torch.core.policies import SchedCoop
     from repro_torch.core.threads import UsfRuntime
     from repro_torch.core.topology import Topology
-    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels import decode_attention, moe_gmm
     from repro_torch.serve.engine import Gateway, InferenceServer
 
     usf = UsfRuntime(Topology(2, 1), SchedCoop(quantum=0.05))
     try:
         servers = [InferenceServer(f"srv-{c}", cfg, usf, max_batch=4,
-                                   max_len=512, seed=0, nice=10, device=dev)
+                                   max_len=512, seed=0, nice=10, device=dev,
+                                   params=params)
                    for c in "ab"]
         torch.cuda.synchronize()
         gw = Gateway(usf, servers)
@@ -312,6 +348,7 @@ def phase_serve(dev, cfg, *, prompt_len=32, max_new=32, clients=4):
                 i, gw.handle(prompts[i], max_new=max_new, timeout=600.0))
 
         decode_attention.flash_decode.launches = 0
+        moe_gmm.moe_gmm.launches = 0
         t0 = time.perf_counter()
         for s in servers:
             s.start()
@@ -322,6 +359,7 @@ def phase_serve(dev, cfg, *, prompt_len=32, max_new=32, clients=4):
                 raise AssertionError(f"client {t} did not finish")
         wall = time.perf_counter() - t0
         launches = decode_attention.flash_decode.launches
+        gmm_launches = moe_gmm.moe_gmm.launches
         for s in servers:
             s.stop()
         served = [s.served for s in servers]
@@ -337,12 +375,17 @@ def phase_serve(dev, cfg, *, prompt_len=32, max_new=32, clients=4):
             if len(out) != max_new or not all(0 <= t < cfg.vocab for t in out):
                 raise AssertionError(f"client {i} {name}: bad output {out}")
     want = cfg.n_layers * sum(steps)
-    log(f"[serve] {clients} clients x {len(servers)} servers served {served}; "
-        f"engine steps {steps}; flash_decode launches {launches} "
-        f"(want n_layers {cfg.n_layers} x {sum(steps)} = {want})")
-    if launches != want:
-        raise AssertionError(f"flash_decode launched {launches} times, "
-                             f"want {want}: decode attention bypassed the kernel")
+    moe_layers = cfg.n_layers - cfg.first_k_dense if cfg.family == "moe" else 0
+    want_gmm = 3 * moe_layers * sum(steps)
+    log(f"[serve] {cfg.name}: {clients} clients x {len(servers)} servers served "
+        f"{served}; engine steps {steps}; flash_decode launches {launches} (want "
+        f"n_layers {cfg.n_layers} x {sum(steps)} = {want}); moe_gmm launches "
+        f"{gmm_launches} (want 3 x {moe_layers} MoE layers x {sum(steps)} = "
+        f"{want_gmm})")
+    if launches != want or gmm_launches != want_gmm:
+        raise AssertionError(f"flash_decode launched {launches} times (want "
+                             f"{want}), moe_gmm {gmm_launches} (want {want_gmm}): "
+                             f"the decode path bypassed a kernel")
     same = sum(r["outputs"]["srv-a"] == r["outputs"]["srv-b"]
                for r in results.values())
     tokens = sum(len(o) for r in results.values() for o in r["outputs"].values())
@@ -351,8 +394,9 @@ def phase_serve(dev, cfg, *, prompt_len=32, max_new=32, clients=4):
         f"({tokens / wall:.1f} tok/s, prefill {prompt_len} x "
         f"{clients * len(servers)} more); request latency s {lat}; "
         f"identical outputs on both servers (same seed) for {same}/{clients}")
-    return {"launches": launches, "steps": sum(steps), "wall_s": wall,
-            "tok_per_s": tokens / wall, "params": servers[0].params}
+    return {"launches": launches, "gmm_launches": gmm_launches,
+            "steps": sum(steps), "wall_s": wall, "tok_per_s": tokens / wall,
+            "params": servers[0].params}
 
 
 def decode_run(model, params, cache, toks, sharder, *, same_state=False):
@@ -418,13 +462,17 @@ def conditioned(cfg, params):
     turns a last-bit difference into an O(1) logit change (phase 4c). With
     the d_model fan-in the scores are O(1), as in a trained model, and a
     logits comparison measures the kernel rather than that amplification."""
-    import math
 
-    attn = dict(params["layers"]["attn"])
-    for key, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
-                   ("wv", cfg.n_kv_heads)):
-        attn[key] = attn[key] * math.sqrt(n / cfg.d_model)
-    return {**params, "layers": {**params["layers"], "attn": attn}}
+    out = dict(params)
+    for stack in ("layers", "dense_layers"):
+        if "attn" not in params.get(stack, {}):
+            continue
+        attn = dict(params[stack]["attn"])
+        for key, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                       ("wv", cfg.n_kv_heads)):
+            attn[key] = attn[key] * math.sqrt(n / cfg.d_model)
+        out[stack] = {**params[stack], "attn": attn}
+    return out
 
 
 def phase_parity(dev, cfg, params, *, steps=16, B=4):
@@ -549,9 +597,10 @@ def time_decode_shape(dev, flush, B, H, KV, W, D):
     return row
 
 
-def time_engine_step(dev, cfg, params, *, B=4, steps=30):
+def time_engine_step(dev, cfg, params, *, B=4, steps=30, plain=None):
     """Host-clock ms of one full-width decode step (synchronised), with
-    the kernel and with the plain attention."""
+    the kernels and with their plain versions (``plain``, a context
+    manager; default the plain attention)."""
     import torch
 
     from repro_torch.models.registry import build_model
@@ -574,15 +623,15 @@ def time_engine_step(dev, cfg, params, *, B=4, steps=30):
         return statistics.median(times[5:])
 
     kernel_ms = run()
-    with plain_attention():
+    with (plain or plain_attention)():
         plain_ms = run()
     return kernel_ms, plain_ms
 
 
-def profile_steps(dev, cfg, params, *, B=4, steps=3):
+def profile_steps(dev, cfg, params, *, B=4, steps=3, keys=("flash_decode_kernel",)):
     """torch.profiler over `steps` full-width decode steps (after one
-    warm-up step): device-busy ms, kernel launches and K1's device ms, each
-    per step."""
+    warm-up step): device-busy ms, kernel launches and the device ms of the
+    kernels named by each of ``keys``, each per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -603,8 +652,8 @@ def profile_steps(dev, cfg, params, *, B=4, steps=3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for t in range(1, steps + 1):
                 step(t)
-    busy, launches, k1 = device_totals(prof, "flash_decode_kernel")
-    return busy / steps, launches / steps, k1 / steps
+    busy, launches, mine = device_totals(prof, *keys)
+    return busy / steps, launches / steps, [m / steps for m in mine]
 
 
 # --------------------------------------------------------------------------- #
@@ -655,7 +704,7 @@ def checked_prefill_attention(tol):
         ops.flash_attention = kernel
 
 
-def logits_close(got, want, what):
+def logits_close(got, want, what, tag="prefill"):
     """Logits within 2e-2 of the largest |logit| (see phase_parity b)."""
     import torch
 
@@ -663,7 +712,7 @@ def logits_close(got, want, what):
     scale = want.float().abs().max().item()
     ok = bool(torch.isfinite(got).all()) and err <= 2e-2 * scale
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    log(f"[prefill] {what}: max_abs_err={err:.3e} (tol 2e-2 of the largest "
+    log(f"[{tag}] {what}: max_abs_err={err:.3e} (tol 2e-2 of the largest "
         f"|logit|, {scale:.3f}), argmax agreement {agree * 100:.2f}% "
         f"{'ok' if ok else 'FAIL'}")
     return ok
@@ -743,6 +792,8 @@ def phase_prefill(dev, *, B=4):
     if not ok:
         raise AssertionError("the prefill path failed its checks")
     return {"launches": sum(r["launches"] for r in runs.values()),
+            "by_path": {f"{r['cfg'].name} forward": r["launches"]
+                        for r in runs.values()},
             "attn_err": attn_err, "runs": runs}
 
 
@@ -798,9 +849,10 @@ def time_flash_shape(dev, flush, B, S, H, KV, D, causal, *, window=None,
     return row
 
 
-def time_forward(dev, run, *, iters=5):
-    """Host-clock ms of one full-width forward (synchronised), with K2 and
-    with the plain attention."""
+def time_forward(dev, run, *, iters=5, plain=None):
+    """Host-clock ms of one full-width forward (synchronised), with the
+    kernels and with their plain versions (``plain``, a context manager;
+    default the plain attention)."""
     import torch
 
     from repro_torch.runtime.sharding import Sharder
@@ -819,14 +871,15 @@ def time_forward(dev, run, *, iters=5):
         return statistics.median(times[1:])
 
     kernel_ms = timed()
-    with plain_prefill_attention():
+    with (plain or plain_prefill_attention)():
         plain_ms = timed()
     return kernel_ms, plain_ms
 
 
-def profile_forward(run):
+def profile_forward(run, keys=("flash_fwd_",)):
     """torch.profiler over one full-width forward (after a warm-up one):
-    device-busy ms, kernel launches and K2's device ms."""
+    device-busy ms, kernel launches and the device ms of the kernels named
+    by each of ``keys``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -839,14 +892,16 @@ def profile_forward(run):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(run["params"], run["batch"])
         torch.cuda.synchronize()
-    return device_totals(prof, "flash_fwd_")
+    return device_totals(prof, *keys)
 
 
-def device_totals(prof, kernel_key):
-    """(device-busy ms, kernel launches, ms of kernels named kernel_key*)."""
+def device_totals(prof, *keys):
+    """(device-busy ms, kernel launches, [ms of the kernels whose names hold
+    each key])."""
     from torch.autograd import DeviceType
 
-    busy = mine = 0.0
+    busy = 0.0
+    mine = [0.0] * len(keys)
     launches = 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:  # kernels, copies, memsets
@@ -854,13 +909,589 @@ def device_totals(prof, kernel_key):
             if dev_us is None:
                 dev_us = e.self_cuda_time_total
             busy += dev_us
-            if kernel_key in e.key:
-                mine += dev_us
+            for i, key in enumerate(keys):
+                if key in e.key:
+                    mine[i] += dev_us
         elif e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"):
             launches += e.count
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
-    return busy / 1e3, launches, mine / 1e3
+    return busy / 1e3, launches, [m / 1e3 for m in mine]
+
+
+# --------------------------------------------------------------------------- #
+# K3 and K4 against their plain versions
+# --------------------------------------------------------------------------- #
+def plain_gmm(x, w):
+    """The plain version of ops.moe_gmm."""
+    from repro_torch.kernels import ref
+
+    return ref.moe_gmm_ref(x, w)
+
+
+def plain_ssd(x, dt, A, Bm, Cm, chunk=256):
+    """The model's chunked algebra in place of ops.ssd_scan: the plain
+    yardstick of K4 in a forward (the kernel's own plain version, the O(S)
+    recurrence ref.ssd_ref, is checked at every call)."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+
+
+def plain_moe():
+    """Every kernel of the MoE path (K1, K2, K3) as its plain version."""
+    return plain_ops(flash_decode=plain_decode, flash_attention=plain_flash,
+                     moe_gmm=plain_gmm)
+
+
+def plain_ssm():
+    return plain_ops(ssd_scan=plain_ssd)
+
+
+GMM_CASES = [
+    # name, E, C, D, F
+    ("test_kernels 2x64x32x48", 2, 64, 32, 48),
+    ("test_kernels 4x100x64x96", 4, 100, 64, 96),
+    ("test_kernels 1x128x128x128", 1, 128, 128, 128),
+    ("deepseek smoke wg, B2 x C6", 8, 12, 64, 32),
+    ("deepseek smoke wd, B2 x C6", 8, 12, 32, 64),
+    ("deepseek decode wg C4", 64, 4, 2048, 1408),
+    ("deepseek decode wd C4", 64, 4, 1408, 2048),
+    ("deepseek prefill wg B4 x C241", 64, 964, 2048, 1408),
+    ("deepseek prefill wd B4 x C241", 64, 964, 1408, 2048),
+    ("ragged 3x5x37x19 (element loads)", 3, 5, 37, 19),
+    ("ragged 3x40x40x24 (C tile edge)", 3, 40, 40, 24),
+]
+
+
+def phase_gmm_kernels(dev) -> float:
+    """K3 against its plain version; returns the largest abs error."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).removeprefix("torch.")]
+        for name, E, C, D, F in GMM_CASES:
+            w = (torch.randn(E, D, F, generator=gen, device=dev) * 0.5).to(dtype)
+            buf = (torch.randn(E, 2 * C, D, generator=gen, device=dev) * 0.5).to(dtype)
+            layouts = {"[E,C,D]": buf[:, :C].contiguous(),
+                       "row-strided view": buf[:, ::2]}
+            for lay, x in layouts.items():
+                got = moe_gmm.moe_gmm(x, w)
+                torch.cuda.synchronize()
+                want = plain_gmm(x, w).float()
+                err = (got.float() - want).abs().max().item()
+                worst = max(worst, err)
+                ok = got.shape == want.shape and torch.allclose(
+                    got.float(), want, rtol=tol, atol=tol)
+                log(f"[kernels] moe_gmm {name:34s} {lay:16s} {str(dtype):14s} "
+                    f"max_abs_err={err:.3e} tol={tol:g} (+{tol:g} relative) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"moe_gmm disagrees with its plain "
+                                         f"version: {name}, {lay}, {dtype}")
+            del w, buf, layouts, got, want
+    return worst
+
+
+SSD_CASES = [
+    # name, B, S, H, P, N, Q
+    ("test_kernels B1 S64 H2 P16 N8 Q16", 1, 64, 2, 16, 8, 16),
+    ("test_kernels B1 S64 H2 P16 N8 Q32", 1, 64, 2, 16, 8, 32),
+    ("test_kernels B2 S128 H4 P32 N16 Q16", 2, 128, 4, 32, 16, 16),
+    ("test_kernels B2 S128 H4 P32 N16 Q32", 2, 128, 4, 32, 16, 32),
+    ("mamba2 smoke B2 S48 H8 P16 N16 Q16", 2, 48, 8, 16, 16, 16),
+    ("ragged Q20 B1 S60 H3 P8 N12", 1, 60, 3, 8, 12, 20),
+    ("ragged Q100 B2 S200 H4 P64 N128", 2, 200, 4, 64, 128, 100),
+    ("mamba2-2.7b B4 S2048 H80 P64 N128 Q256", 4, 2048, 80, 64, 128, 256),
+]
+
+
+def ssd_inputs(gen, dev, dtype, B, S, H, P, N):
+    """tests/test_kernels.py's distributions: x, B, C in ``dtype`` as views
+    of wider buffers (so the kernel reads them through strides); dt, A fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn(B, S, H, 2 * P, generator=gen, device=dev).to(dtype)[..., :P]
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.3)
+    bc = (torch.randn(B, S, 2 * N, generator=gen, device=dev) * 0.5).to(dtype)
+    return x, dt, A, bc[..., :N], bc[..., N:]
+
+
+def ssd_close(got, want):
+    """(max abs error, worst ratio of the error to its tolerance) of K4's y
+    or h against a plain version run in fp32 on the same inputs; within
+    tolerance when the ratio is at most 1. Elementwise, the tolerance sums:
+
+    - 1e-4 |want| + 1e-4 max(1, max |want|): the fp32 sum order. K4's
+      chunked decays exp(cum_i - cum_j) take cum from a sum of up to Q
+      terms dt A (|cum| reaches ~470 at Q = 256 with dt ~ softplus of
+      N(0, 1)), the recurrence multiplies one decay a step; an output near
+      0 is a difference of terms of the output's size, so its error is a
+      fraction of that size and not of itself;
+    - when ``got`` is bf16, 2^-8 |want| + 2e-2: one rounding of the
+      kernel's fp32 output to bf16 (half an ulp, at most 2^-8 of the
+      value), and a flat floor for outputs near 0.
+    """
+    import torch
+
+    want = want.float()
+    bf16 = got.dtype == torch.bfloat16
+    err = (got.float() - want).abs()
+    scale = max(1.0, want.abs().max().item())
+    tol = (1e-4 + (2 ** -8 if bf16 else 0.0)) * want.abs() + 1e-4 * scale
+    if bf16:
+        tol = tol + 2e-2
+    return err.max().item(), (err / tol).max().item()
+
+
+def fp32_ssd(plain, x, dt, A, Bm, Cm, *args):
+    """``plain`` (ref.ssd_ref or ssd_chunked) on x, B and C widened to fp32:
+    both sum in fp32, and so return y without a bf16 rounding of its own."""
+    return plain(x.float(), dt, A, Bm.float(), Cm.float(), *args)
+
+
+def phase_ssd_kernels(dev) -> float:
+    """K4 against its plain version (the exact recurrence) and the model's
+    chunked algebra, both run in fp32 (``ssd_close``); returns the largest
+    abs error."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, H, P, N, Q in SSD_CASES:
+            x, dt, A, Bm, Cm = ssd_inputs(gen, dev, dtype, B, S, H, P, N)
+            y, h = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+            torch.cuda.synchronize()
+            for what, (wy, wh) in (
+                    ("ssd_ref", fp32_ssd(ref.ssd_ref, x, dt, A, Bm, Cm)),
+                    ("ssd_chunked", fp32_ssd(ssd_chunked, x, dt, A, Bm, Cm, Q))):
+                ey, ry = ssd_close(y, wy)
+                eh, rh = ssd_close(h, wh)
+                worst = max(worst, ey, eh)
+                ok = y.shape == wy.shape and h.shape == wh.shape and max(ry, rh) <= 1
+                log(f"[kernels] ssd_scan {name:40s} {str(dtype):14s} vs {what:11s} "
+                    f"(fp32) y max_abs_err={ey:.3e} at {ry:.3f} of its tolerance, "
+                    f"h max_abs_err={eh:.3e} at {rh:.3f} (|y|max "
+                    f"{wy.abs().max().item():.3g}, |h|max {wh.abs().max().item():.3g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"ssd_scan disagrees with {what}: {name}, "
+                                         f"{dtype}")
+            del x, dt, A, Bm, Cm, y, h, wy, wh
+    return worst
+
+
+def gmm_bound(E, C, D, F):
+    moved = (E * C * D + E * D * F + E * C * F) * 2
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * E * C * D * F / PEAK_FLOPS["bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_gmm_shape(dev, flush, E, C, D, F):
+    """K3, plain and torch.bmm (the yardstick, never called by the port)
+    times at one shape in bf16."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(E, D, F, generator=gen, device=dev) / D ** 0.5).bfloat16()
+    row = {"ms": time_ms(lambda: ops.moe_gmm(x, w), flush),
+           "plain_ms": time_ms(lambda: plain_gmm(x, w), flush, 10, warmup=2),
+           "library_ms": time_ms(lambda: torch.bmm(x, w), flush)}
+    row["bound_ms"], row["bound_by"] = gmm_bound(E, C, D, F)
+    row["shape"] = f"E={E} C={C} D={D} F={F} bf16, x [E,C,D] contiguous"
+    return row
+
+
+def ssd_bound(B, S, H, P, N, Q, es):
+    """The least time of the scan: x, dt, A, B, C read and y, h written once;
+    the chunk algebra's fp32 operations with the causal halves skipped and
+    C B^T counted once a chunk (it does not depend on the head)."""
+    nc = S // Q
+    moved = (2 * B * S * H * P * es + B * S * H * 4 + H * 4 + 2 * B * S * N * es
+             + B * H * P * N * 4)
+    tri = Q * (Q + 1) // 2
+    flops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), flops, moved
+
+
+def time_ssd_shape(dev, flush, B, S, H, P, N, Q):
+    """K4, its plain version (the exact recurrence) and the model's chunked
+    algebra at one shape: bf16 x, B, C and fp32 dt, A, model layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(B, S, H, P, generator=gen, device=dev).bfloat16()
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.3)
+    Bm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5).bfloat16()
+    Cm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5).bfloat16()
+    row = {"ms": time_ms(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q), flush, 20),
+           "plain_ms": time_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm), flush, 2, warmup=1),
+           "chunked_ms": time_ms(lambda: plain_ssd(x, dt, A, Bm, Cm, Q), flush, 5,
+                                 warmup=1),
+           "library_ms": None}
+    (row["bound_ms"], row["bound_by"]), flops, moved = ssd_bound(B, S, H, P, N, Q, 2)
+    row["shape"] = (f"B={B} S={S} H={H} P={P} N={N} Q={Q}, bf16 x/B/C, fp32 dt/A, "
+                    f"model layout; plain = ref.ssd_ref (the O(S) recurrence)")
+    row["bound_note"] = (f"{flops / 1e9:.1f} GFLOP at the {PEAK_FLOPS['float32'] / 1e12:.0f}"
+                         f" TFLOP/s fp32 rate, {moved / 1e6:.1f} MB at "
+                         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# the MoE family: deepseek-moe-16b
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def checked_gmm(tol):
+    """Run K3 and, on the same inputs, the plain version at every expert
+    product; yields (max abs err, worst excess over tol + tol |want|) per
+    call."""
+    from repro_torch.kernels import ops
+
+    kernel, found = ops.moe_gmm, []
+
+    def checked(x, w):
+        out = kernel(x, w)
+        want = plain_gmm(x, w).float()
+        d = (out.float() - want).abs()
+        found.append((d.max(), (d - tol - tol * want.abs()).max()))
+        return out
+
+    ops.moe_gmm = checked
+    try:
+        yield found
+    finally:
+        ops.moe_gmm = kernel
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None):
+    """Record each MoE layer's expert choice (top-k of the router), or
+    replay recorded choices with gates from the run's own router
+    probabilities: the capacity positions follow from the choices."""
+    from repro_torch.models import moe
+
+    own, calls = moe.top_k_gates, None if replay is None else iter(replay)
+
+    def top_k_gates(probs, k):
+        if calls is not None:
+            eidx = next(calls)
+            gates = probs.gather(-1, eidx)
+            return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+        gates, eidx = own(probs, k)
+        if record is not None:
+            record.append(eidx)
+        return gates, eidx
+
+    moe.top_k_gates = top_k_gates
+    try:
+        yield
+    finally:
+        moe.top_k_gates = own
+
+
+def gb(nbytes) -> str:
+    return f"{nbytes / 1e9:.1f} GB"
+
+
+def phase_moe(dev, flush, *, B=4, S=2048):
+    """deepseek-moe-16b at full width: served (K1, K3), its forward (K2,
+    K3) with per-call and pinned-routing logits checks, and timings."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention, moe_gmm
+    from repro_torch.launch.inputs import make_batch
+    from repro_torch.models.base import init_tree, param_count
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = get_arch("deepseek_moe_16b")
+    model, sharder = build_model(cfg), Sharder(None)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    log(f"[moe] config {cfg.name}: {cfg.n_layers}L ({cfg.first_k_dense} dense) "
+        f"d_model {cfg.d_model} H {cfg.n_heads} KV {cfg.n_kv_heads} hd {cfg.hd}, "
+        f"{cfg.n_experts} routed experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+        f"shared, expert d_ff {cfg.expert_d_ff}, vocab {cfg.vocab}")
+    torch.cuda.reset_peak_memory_stats()
+    # drawn in the compute dtype (the router, fp32 by its spec, stays fp32):
+    # fp32 weights and a bf16 copy would not fit the card's 80 GB
+    params = model.compute_params(init_tree(
+        torch.Generator(device=dev).manual_seed(0), model.param_specs(),
+        cfg.compute_dtype, dev))
+    torch.cuda.synchronize()
+    log(f"[moe] {cfg.name}: {param_count(model.param_specs()) / 1e9:.2f} B params "
+        f"drawn in {cfg.compute_dtype} (router fp32): "
+        f"{gb(torch.cuda.memory_allocated())} on the card, peak "
+        f"{gb(torch.cuda.max_memory_allocated())}")
+
+    serve = phase_serve(dev, cfg, params=params)
+    serve.pop("params")
+
+    # the forward through make_prefill_step
+    batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1), dev,
+                       with_labels=False)
+    step = make_prefill_step(model, sharder)
+    torch.cuda.synchronize()
+    flash_attention.flash_attention_fwd.launches = 0
+    moe_gmm.moe_gmm.launches = 0
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    k2 = flash_attention.flash_attention_fwd.launches
+    k3 = moe_gmm.moe_gmm.launches
+    finite = bool(torch.isfinite(logits).all())
+    ok = (tuple(logits.shape) == (B, S, cfg.vocab) and finite
+          and k2 == cfg.n_layers and k3 == 3 * n_moe)
+    log(f"[moe] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}: logits "
+        f"{tuple(logits.shape)}, finite {finite}; flash_attention launches {k2} "
+        f"(want {cfg.n_layers}), moe_gmm launches {k3} (want 3 x {n_moe}) "
+        f"{'ok' if ok else 'FAIL'}")
+    del logits
+
+    # a. every K3 call of the forward against the plain version
+    with checked_gmm(TOL["bfloat16"]) as found:
+        step(params, batch)
+    gmm_err = max(e.item() for e, _ in found)
+    good = len(found) == 3 * n_moe and max(x.item() for _, x in found) <= 0
+    log(f"[moe] a. {cfg.name} bf16 K3 calls of the forward against the plain "
+        f"version on the model's inputs: {len(found)} calls, max_abs_err="
+        f"{gmm_err:.3e} (tol 2e-2 + 2e-2 relative) {'ok' if good else 'FAIL'}")
+    ok &= good
+
+    # b. logits, K3 vs the plain expert product, routing pinned
+    cond = conditioned(cfg, params)
+    chosen, unpinned = [], []
+    with routing(record=chosen):
+        got = step(cond, batch)
+    with plain_ops(moe_gmm=plain_gmm):
+        with routing(record=unpinned):
+            step(cond, batch)
+        with routing(replay=chosen):
+            want = step(cond, batch)
+    flips = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    for a, b in zip(chosen, unpinned):
+        flips |= (a.sort(-1).values != b.sort(-1).values).any(-1)
+    log(f"[moe] b. unpinned, the top-{cfg.top_k} choice of the plain run differs "
+        f"from K3's at some layer for {flips.float().mean().item() * 100:.3f}% of "
+        f"the {B * S} tokens (bf16 router inputs; a last-bit difference flips a "
+        f"near tie)")
+    ok &= logits_close(got, want, f"b. {cfg.name} bf16 logits of all {B * S} "
+                       f"tokens, conditioned weights, K3 vs plain expert product "
+                       f"with the plain run's routing pinned to K3's", "moe")
+    del got, want, cond, chosen, unpinned
+    if not ok:
+        raise AssertionError("the MoE path failed its checks")
+
+    # timings
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    rows = {"decode": time_gmm_shape(dev, flush, E, 4, D, Fd),
+            "prefill": time_gmm_shape(dev, flush, E, B * 241, D, Fd)}
+    for tag, row in rows.items():
+        log(f"[timing] moe_gmm {tag} shape ({row['shape']}): kernel_ms="
+            f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms="
+            f"{row['library_ms']:.6f} (torch.bmm, yardstick) bound_ms="
+            f"{row['bound_ms']:.6f} ({row['bound_by']}); "
+            f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
+    step_ms, plain_step_ms = time_engine_step(dev, cfg, params, steps=15,
+                                              plain=plain_moe)
+    log(f"[timing] full-width {cfg.name} decode step B=4: {step_ms:.3f} ms with "
+        f"K1 and K3, {plain_step_ms:.3f} ms with their plain versions; engine "
+        f"{serve['tok_per_s']:.1f} generated tok/s over {serve['steps']} steps in "
+        f"{serve['wall_s']:.3f} s")
+    busy, launches, (k1_ms, k3_ms) = profile_steps(
+        dev, cfg, params, keys=("flash_decode_kernel", "gmm_"))
+    log(f"[profile] full-width {cfg.name} decode step B=4 (torch.profiler, 3 "
+        f"steps): device busy {busy:.3f} ms a step ({busy / step_ms * 100:.1f}% of "
+        f"the {step_ms:.3f} ms step, idle {100 - busy / step_ms * 100:.1f}%); "
+        f"{launches:.0f} kernel launches a step; moe_gmm {k3_ms:.3f} ms a step "
+        f"({k3_ms / busy * 100:.1f}% of device time), flash_decode {k1_ms:.3f} ms "
+        f"({k1_ms / busy * 100:.1f}%)")
+    run = {"model": model, "params": params, "batch": batch}
+    fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_moe)
+    busy, launches, (k2_ms, k3_ms) = profile_forward(run, keys=("flash_fwd_", "gmm_"))
+    log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
+        f"K2 and K3 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
+        f"their plain versions")
+    log(f"[profile] full-width {cfg.name} forward (torch.profiler, one forward): "
+        f"device busy {busy:.3f} ms ({busy / fwd_ms * 100:.1f}% of {fwd_ms:.3f} ms); "
+        f"{launches} kernel launches; moe_gmm {k3_ms:.3f} ms ({k3_ms / busy * 100:.1f}"
+        f"% of device time), flash_attention {k2_ms:.3f} ms "
+        f"({k2_ms / busy * 100:.1f}%)")
+    log(f"[moe] peak device memory of the {cfg.name} phase: "
+        f"{gb(torch.cuda.max_memory_allocated())}")
+    return {"serve_k1": serve["launches"], "serve_k3": serve["gmm_launches"],
+            "fwd_k2": k2, "fwd_k3": k3, "gmm_err": gmm_err, "rows": rows}
+
+
+# --------------------------------------------------------------------------- #
+# the SSM family: mamba2-2.7b
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def checked_ssd():
+    """Run K4 and, on the same inputs, its plain version (the exact
+    recurrence, in fp32) at every scan; yields (y err, y's ratio to its
+    tolerance, h err, h's ratio) per call, by ``ssd_close``."""
+    from repro_torch.kernels import ops, ref
+
+    kernel, found = ops.ssd_scan, []
+
+    def checked(x, dt, A, Bm, Cm, chunk=256):
+        y, h = kernel(x, dt, A, Bm, Cm, chunk=chunk)
+        wy, wh = fp32_ssd(ref.ssd_ref, x, dt, A, Bm, Cm)
+        found.append((*ssd_close(y, wy), *ssd_close(h, wh)))
+        return y, h
+
+    ops.ssd_scan = checked
+    try:
+        yield found
+    finally:
+        ops.ssd_scan = kernel
+
+
+def ssm_calls(found, what):
+    """Log the per-call K4 results of ``checked_ssd``; True if all held."""
+    good = all(max(c[1], c[3]) <= 1 for c in found)
+    log(f"[ssm] {what}: {len(found)} calls, y max_abs_err="
+        f"{max(c[0] for c in found):.3e} at {max(c[1] for c in found):.3f} of its "
+        f"tolerance, state max_abs_err={max(c[2] for c in found):.3e} at "
+        f"{max(c[3] for c in found):.3f} (see ssd_close) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
+    """mamba2-2.7b at full width: its forward (K4) with per-call checks,
+    the fp32 forward against teacher-forced decode over three chunks, and
+    timings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.inputs import make_batch
+    from repro_torch.models.base import init_tree, param_count
+    from repro_torch.models.mamba2 import published_dt_A
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = get_arch("mamba2_2_7b")
+    model, sharder = build_model(cfg), Sharder(None)
+    torch.cuda.reset_peak_memory_stats()
+    params32 = init_tree(torch.Generator(device=dev).manual_seed(0),
+                         model.param_specs(), cfg.param_dtype, dev)
+    params = model.compute_params(params32)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    H = d_inner // cfg.ssm_head_dim
+    log(f"[ssm] config {cfg.name}: {cfg.n_layers}L d_model {cfg.d_model}, {H} SSM "
+        f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        f"vocab {cfg.vocab}; {param_count(model.param_specs()) / 1e9:.2f} B params, "
+        f"{cfg.param_dtype} params and a {cfg.compute_dtype} compute copy: "
+        f"{gb(torch.cuda.memory_allocated())} on the card")
+
+    batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1), dev,
+                       with_labels=False)
+    step = make_prefill_step(model, sharder)
+    torch.cuda.synchronize()
+    ssd_scan.ssd_scan.launches = 0
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    k4 = ssd_scan.ssd_scan.launches
+    finite = bool(torch.isfinite(logits).all())
+    ok = tuple(logits.shape) == (B, S, cfg.vocab) and finite and k4 == cfg.n_layers
+    log(f"[ssm] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}: logits "
+        f"{tuple(logits.shape)}, finite {finite}; ssd_scan launches {k4} (want "
+        f"n_layers {cfg.n_layers}) {'ok' if ok else 'FAIL'}")
+    del logits
+
+    # a. every K4 call of the forward against the exact recurrence
+    with checked_ssd() as found:
+        step(params, batch)
+    ssd_err = max(max(c[0], c[2]) for c in found)
+    ok &= ssm_calls(found, f"a. {cfg.name} K4 calls of the bf16 forward against "
+                    f"its plain version (the exact recurrence, fp32) on the "
+                    f"model's inputs") and len(found) == cfg.n_layers
+
+    # b. the fp32 forward (K4) against teacher-forced decode (no kernel)
+    # over `prompt` tokens, several chunks, so that the state K4 carries
+    # across chunk boundaries reaches the logits; on Mamba-2's published
+    # dt and A init (the specs' init is chaotic at this depth, ROADMAP
+    # Queue 3: `python -m repro_torch.launch.ssm_conditioning`)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32)
+    cond32 = published_dt_A(params32, torch.Generator(device=dev).manual_seed(5))
+    toks = batch["tokens"][:, :prompt]
+    short = {"tokens": toks, "positions": batch["positions"][:, :prompt]}
+    t0 = time.perf_counter()
+    pre = make_prefill_step(model32, sharder)(cond32, short)
+    with torch.inference_mode():
+        dec = decode_run(model32, cond32, fresh_cache(cfg32, B, prompt, dev),
+                         toks.t().contiguous(), sharder).transpose(0, 1)
+    ok &= logits_close(pre, dec, f"b. {cfg.name} fp32 logits at all {prompt} "
+                       f"positions ({prompt // cfg.ssm_chunk} chunks of "
+                       f"{cfg.ssm_chunk}), forward (K4) vs teacher-forced decode "
+                       f"(no kernel), Mamba-2's dt and A init; "
+                       f"{time.perf_counter() - t0:.1f} s", "ssm")
+    del pre, dec
+
+    # c. every K4 call of the bf16 forward on the same init
+    cond = model.compute_params(cond32)
+    with checked_ssd() as found:
+        step(cond, batch)
+    ok &= ssm_calls(found, f"c. {cfg.name} K4 calls of the bf16 forward on "
+                    f"Mamba-2's dt and A init against the exact recurrence "
+                    f"(fp32)") and len(found) == cfg.n_layers
+    del cond, cond32, params32
+
+    row = time_ssd_shape(dev, flush, B, S, H, cfg.ssm_head_dim, cfg.ssm_state,
+                         cfg.ssm_chunk)
+    log(f"[timing] ssd_scan ({row['shape']}): kernel_ms={row['ms']:.6f} plain_ms="
+        f"{row['plain_ms']:.6f} chunked_ms={row['chunked_ms']:.6f} (the model's "
+        f"chunked algebra) library_ms=n/a (no single PyTorch call) bound_ms="
+        f"{row['bound_ms']:.6f} ({row['bound_by']}: {row['bound_note']}); "
+        f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
+    run = {"model": model, "params": params, "batch": batch}
+    fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_ssm)
+    busy, launches, (k4_ms,) = profile_forward(run, keys=("ssd_fwd",))
+    log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
+        f"K4 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with the "
+        f"chunked scan")
+    log(f"[profile] full-width {cfg.name} forward (torch.profiler, one forward): "
+        f"device busy {busy:.3f} ms ({busy / fwd_ms * 100:.1f}% of {fwd_ms:.3f} ms); "
+        f"{launches} kernel launches; ssd_scan {k4_ms:.3f} ms "
+        f"({k4_ms / busy * 100:.1f}% of device time)")
+    step_ms, _ = time_engine_step(dev, cfg, params, steps=15,
+                                  plain=contextlib.nullcontext)
+    busy, launches, _ = profile_steps(dev, cfg, params, keys=())
+    log(f"[timing] full-width {cfg.name} decode step B=4 (no kernel on this "
+        f"path): {step_ms:.3f} ms; device busy {busy:.3f} ms a step "
+        f"({busy / step_ms * 100:.1f}%), {launches:.0f} kernel launches a step")
+    log(f"[ssm] peak device memory of the {cfg.name} phase: "
+        f"{gb(torch.cuda.max_memory_allocated())}")
+    if not ok:
+        raise AssertionError("the SSM path failed its checks")
+    return {"fwd_k4": k4, "ssd_err": ssd_err, "row": row}
 
 
 def card() -> str:
@@ -896,9 +1527,12 @@ def main() -> int:
         f"{cfg.n_kv_heads} hd {cfg.hd} d_ff {cfg.d_ff} vocab {cfg.vocab}, "
         f"{cfg.compute_dtype} compute, {cfg.param_dtype} params")
 
+    t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(dev)
     flash_err = phase_flash_kernels(dev)
+    gmm_err = phase_gmm_kernels(dev)
+    ssd_err = phase_ssd_kernels(dev)
     serve = phase_serve(dev, cfg)
     params = serve.pop("params")
     phase_parity(dev, cfg, params)
@@ -919,7 +1553,7 @@ def main() -> int:
         f"{plain_step_ms:.3f} ms with the plain attention; engine "
         f"{serve['tok_per_s']:.1f} generated tok/s over {serve['steps']} steps "
         f"in {serve['wall_s']:.3f} s")
-    busy_ms, launches, k1_ms = profile_steps(dev, cfg, params)
+    busy_ms, launches, (k1_ms,) = profile_steps(dev, cfg, params)
     log(f"[profile] full-width decode step B=4 (torch.profiler, 3 steps): device "
         f"busy {busy_ms:.3f} ms a step ({busy_ms / step_ms * 100:.1f}% of the "
         f"{step_ms:.3f} ms step, idle {100 - busy_ms / step_ms * 100:.1f}%); "
@@ -945,7 +1579,7 @@ def main() -> int:
     for arch, run in prefill["runs"].items():
         fwd_ms, plain_fwd_ms = time_forward(dev, run)
         B, S = run["batch"]["positions"].shape
-        busy_ms, launches, k2_ms = profile_forward(run)
+        busy_ms, launches, (k2_ms,) = profile_forward(run)
         log(f"[timing] full-width {run['cfg'].name} forward B={B} S={S}: "
             f"{fwd_ms:.3f} ms with K2 ({B * S / fwd_ms * 1e3:.0f} tok/s), "
             f"{plain_fwd_ms:.3f} ms with the plain attention")
@@ -954,19 +1588,52 @@ def main() -> int:
             f"of {fwd_ms:.3f} ms); {launches} kernel launches; flash_attention "
             f"{k2_ms:.3f} ms ({k2_ms / busy_ms * 100:.1f}% of device time)")
 
+    del prefill["runs"], run
+    log(f"[memory] peak device memory of the smollm-360m and hubert-xlarge phases: "
+        f"{gb(torch.cuda.max_memory_allocated())}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = phase_ssm(dev, flush)
+    log(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
+
+    k1_paths = {"smollm-360m serve": serve["launches"],
+                "deepseek-moe-16b serve": moe["serve_k1"]}
+    k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"]}
+    k3_paths = {"deepseek-moe-16b serve": moe["serve_k3"],
+                "deepseek-moe-16b forward": moe["fwd_k3"]}
     kernels = [{
         "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
-        "replaces": DECODE_REPLACES, "launches": serve["launches"],
+        "replaces": DECODE_REPLACES, "launches": sum(k1_paths.values()),
+        "launches_by_path": k1_paths,
         "max_abs_err": max_err, "ms": serve_row["ms"],
         "plain_ms": serve_row["plain_ms"], "bound_ms": serve_row["bound_ms"],
         "bound_by": serve_row["bound_by"], "library_ms": serve_row["library_ms"],
         "shape": serve_row["shape"], "long": long_row,
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": prefill["launches"],
+        "replaces": FLASH_REPLACES, "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
         "max_abs_err": flash_err, **{key: rows["smollm"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "hubert": rows["hubert"], "long": rows["long"],
+    }, {
+        "name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,
+        "replaces": GMM_REPLACES, "launches": sum(k3_paths.values()),
+        "launches_by_path": k3_paths, "max_abs_err": max(gmm_err, moe["gmm_err"]),
+        **{key: moe["rows"]["decode"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "prefill": moe["rows"]["prefill"],
+    }, {
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES, "launches": ssm["fwd_k4"],
+        "launches_by_path": {"mamba2-2.7b forward": ssm["fwd_k4"]},
+        "max_abs_err": max(ssd_err, ssm["ssd_err"]),
+        **{key: ssm["row"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "chunked_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card(), flush=True)

@@ -1,9 +1,12 @@
 """Model-layout entry points to the kernels.
 
 The model keeps activations as ``[B,S,H,D]`` and caches as ``[B,W,KV,D]``;
-the kernels take ``[B,H,S,D]`` and ``[B,KV,W,D]``. Where the JAX adapters
-copy with ``swapaxes``, these pass transposed views: the CUDA kernels read
-them through their strides (and K2 writes its output in model layout).
+the attention kernels take ``[B,H,S,D]`` and ``[B,KV,W,D]``. Where the JAX
+adapters copy with ``swapaxes``, these pass transposed views: the CUDA
+kernels read them through their strides (and K2 writes its output in model
+layout). K3 and K4 take the model's layouts as they are (the expert-major
+dispatch buffer; ``[B,S,H,P]`` for the scan, which the JAX kernel wrapper
+moves to ``[B,H,S,P]`` with copies).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,3 +38,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return _dec.flash_decode(q, k_cache.transpose(1, 2),
                              v_cache.transpose(1, 2), cache_pos, q_pos,
                              window=window)
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [E,C,D] (any row strides); w [E,D,F] -> [E,C,F] in x's dtype."""
+    return _gmm.moe_gmm(x, w)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 256):
+    """x [B,S,H,P]; dt [B,S,H]; A [H]; Bm, Cm [B,S,N] (model layout) ->
+    (y [B,S,H,P], final state [B,H,P,N] fp32)."""
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)

@@ -56,3 +56,25 @@ def flash_decode_ref(q, k_cache, v_cache, cache_pos, q_pos, *,
     p = torch.where(valid, p, 0.0)
     o = torch.einsum("bkgw,bkwd->bkgd", p, v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm):
+    """Exact O(S) recurrence. x [B,S,H,P]; dt [B,S,H]; A [H]; Bm, Cm
+    [B,S,N]. Returns (y [B,S,H,P] in x's dtype, h_final [B,H,P,N] fp32)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    A = A.float()
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()                                # [B,H]
+        a = torch.exp(dtt * A)
+        h = h * a[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dtt, Bm[:, t].float(), x[:, t].float())
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def moe_gmm_ref(x, w):
+    """x [E,C,D]; w [E,D,F] -> [E,C,F] in x's dtype, summed in fp32."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

@@ -44,7 +44,8 @@ def make_batch(cfg, B: int, S: int, generator: torch.Generator, device, *,
 def make_decode_inputs(cfg, B: int, max_len: int, generator: torch.Generator,
                        device, *, pos: int = 0):
     """(cache, tokens [B] int32, positions [B] int32) on ``device``; the
-    cache is empty (k, v zeros; pos -1). ``generator`` lives on ``device``."""
+    cache is empty (attention: k, v zeros, pos -1; mamba2: conv buffer and
+    state zeros). ``generator`` lives on ``device``."""
     if cfg.frontend != "token" or cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: decode inputs for the "
                                   f"{cfg.family} family (ROADMAP M9)")

@@ -102,7 +102,10 @@ def _init_leaf(spec: ParamSpec, dtype: torch.dtype, generator: torch.Generator,
         raise ValueError(f"unknown init {kind}")
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (x * std).to(dtype)
+    # scaled in place: a stacked expert leaf drawn for a bf16 tree is 20 GB
+    # in fp32 at deepseek-moe-16b's width, and a second fp32 copy would
+    # not fit beside the rest of the tree on an 80 GB card
+    return x.mul_(std).to(dtype)
 
 
 def init_tree(generator: torch.Generator, specs: Any,

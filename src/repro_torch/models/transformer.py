@@ -1,13 +1,15 @@
-"""The LM, dense and audio families: parameter and cache specs, the
-full-sequence forward (prefill) and the decode step.
+"""The LM, dense, audio, MoE and SSM families: parameter and cache specs,
+the full-sequence forward (prefill) and the decode step.
 
 Port of ``repro/models/transformer.py``. Stacked ``[L, ...]`` parameters
 and caches keep the JAX tree's keys; the layers run in a Python loop over
 views of the stacks in place of ``lax.scan``, and the decode step writes
 the cache in place. The audio family (hubert) is the dense block run
 bidirectionally behind a frame-embedding frontend, with no decode. The
-other families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+MoE family (deepseek) replaces the dense FFN with ``moe.moe_block`` after
+``first_k_dense`` dense layers; the SSM family (mamba2) is a stack of
+``mamba2`` mixers. The hybrid and VLM families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,11 +20,16 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.base import tree_index, tree_map, torch_dtype
 
-#: keys of RMSNorm scales, which the model reads in fp32 whatever the
-#: compute dtype (layers.rmsnorm)
-_NORM_KEYS = frozenset({"ln1", "ln2", "final_norm"})
+#: keys of the leaves the model reads in fp32 whatever the compute dtype:
+#: RMSNorm scales (layers.rmsnorm, the mixer's gated "norm" too), the MoE
+#: router (routing runs in fp32), and the mamba2 mixer's A_log, dt_bias and
+#: D (fp32 in the decode step and in the decay terms)
+_FP32_KEYS = frozenset({"ln1", "ln2", "ln", "final_norm", "norm", "router",
+                        "A_log", "dt_bias", "D"})
 
 
 def _stack_specs(specs: Any, n: int) -> Any:
@@ -36,6 +43,19 @@ def dense_block_specs(cfg) -> dict:
         "ln2": L.rmsnorm_spec(cfg.d_model),
         "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_act),
     }
+
+
+def moe_block_specs(cfg) -> dict:
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": attn.attn_specs(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "moe": moe_mod.moe_specs(cfg),
+    }
+
+
+def ssm_block_specs(cfg) -> dict:
+    return {"ln": L.rmsnorm_spec(cfg.d_model), "mixer": m2.mamba2_specs(cfg)}
 
 
 def _res(sharder, x):
@@ -54,8 +74,28 @@ def dense_block_fwd(p, cfg, sharder, x, positions, *, mode, window):
     return _res(sharder, x + h)
 
 
+def moe_block_fwd(p, cfg, sharder, x, positions, *, mode, window):
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h = sharder.sp_boundary(h)
+    h = attn.attention_block(p["attn"], cfg, sharder, h, positions,
+                             mode=mode, window=window)
+    x = _res(sharder, x + h)
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    h = sharder.sp_boundary(h)
+    h, aux = moe_mod.moe_block(p["moe"], cfg, sharder, h)
+    return _res(sharder, x + h), aux
+
+
+def ssm_block_fwd(p, cfg, sharder, x):
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    h = m2.mamba2_block(p["mixer"], cfg, sharder, h)
+    return _res(sharder, x + h)
+
+
 #: families whose layers are the dense block
 _DENSE = ("dense", "audio")
+#: families this port runs
+_PORTED = (*_DENSE, "moe", "ssm")
 
 
 def _unported(cfg) -> NotImplementedError:
@@ -70,7 +110,7 @@ class LM:
     # ---------------- param specs ---------------- #
     def param_specs(self) -> dict:
         cfg = self.cfg
-        if cfg.family not in _DENSE:
+        if cfg.family not in _PORTED:
             raise _unported(cfg)
         specs: dict[str, Any] = {}
         if cfg.frontend == "token":
@@ -80,12 +120,21 @@ class LM:
             specs["frontend"] = {"proj": L.frontend_proj_spec(d_in, cfg.d_model)}
         specs["final_norm"] = L.rmsnorm_spec(cfg.d_model)
         specs["unembed"] = L.unembed_spec(cfg.d_model, cfg.vocab)
-        specs["layers"] = _stack_specs(dense_block_specs(cfg), cfg.n_layers)
+        if cfg.family == "moe":
+            k = cfg.first_k_dense
+            if k:
+                specs["dense_layers"] = _stack_specs(dense_block_specs(cfg), k)
+            specs["layers"] = _stack_specs(moe_block_specs(cfg), cfg.n_layers - k)
+        elif cfg.family == "ssm":
+            specs["layers"] = _stack_specs(ssm_block_specs(cfg), cfg.n_layers)
+        else:
+            specs["layers"] = _stack_specs(dense_block_specs(cfg), cfg.n_layers)
         return specs
 
     def compute_params(self, params: dict) -> dict:
         """``params`` with every weight the model casts to the compute dtype
-        cast once, ahead of time; RMSNorm scales stay as they are.
+        cast once, ahead of time; the leaves it reads in fp32
+        (``_FP32_KEYS``) stay as they are.
 
         The JAX model casts at each use (``w.astype(dt)``); casting here
         gives the same values without re-reading fp32 weights every step."""
@@ -94,7 +143,7 @@ class LM:
         def cast(tree: Any, key: str = "") -> Any:
             if isinstance(tree, dict):
                 return {k: cast(v, k) for k, v in tree.items()}
-            return tree if key in _NORM_KEYS else tree.to(dt)
+            return tree if key in _FP32_KEYS else tree.to(dt)
 
         return cast(params)
 
@@ -123,16 +172,30 @@ class LM:
         so this forward-only port has none (``torch.utils.checkpoint``
         arrives with training, ROADMAP M10)."""
         cfg = self.cfg
-        if cfg.family not in _DENSE:
+        if cfg.family not in _PORTED:
             raise _unported(cfg)
         x = self._embed_in(params, batch, sharder)
         positions = batch["positions"]
         mode = "bidir" if cfg.encoder_only else "causal"
-        for i in range(cfg.n_layers):
-            x = dense_block_fwd(tree_index(params["layers"], i), cfg, sharder,
-                                x, positions, mode=mode, window=cfg.swa_window)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        aux = {"moe_aux": zero, "moe_z": zero.clone()}
+        aux_a = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_z = aux_a.clone()
+        if cfg.family == "moe":
+            for i in range(cfg.first_k_dense):
+                x = dense_block_fwd(tree_index(params["dense_layers"], i), cfg,
+                                    sharder, x, positions, mode=mode, window=None)
+            for i in range(cfg.n_layers - cfg.first_k_dense):
+                x, a = moe_block_fwd(tree_index(params["layers"], i), cfg, sharder,
+                                     x, positions, mode=mode, window=None)
+                aux_a = aux_a + a["moe_aux"]
+                aux_z = aux_z + a["moe_z"]
+        elif cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x = ssm_block_fwd(tree_index(params["layers"], i), cfg, sharder, x)
+        else:
+            for i in range(cfg.n_layers):
+                x = dense_block_fwd(tree_index(params["layers"], i), cfg, sharder,
+                                    x, positions, mode=mode, window=cfg.swa_window)
+        aux = {"moe_aux": aux_a, "moe_z": aux_z}
         return self._logits_out(params, x, sharder), aux
 
     # ---------------- decode ---------------- #
@@ -140,6 +203,15 @@ class LM:
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
+        if cfg.family == "ssm":
+            return {"layers": _stack_specs(m2.mamba2_cache_specs(cfg, batch),
+                                           cfg.n_layers)}
+        if cfg.family == "moe":
+            per = attn.cache_specs(cfg, batch, max_len, window=None)
+            out = {"layers": _stack_specs(per, cfg.n_layers - cfg.first_k_dense)}
+            if cfg.first_k_dense:
+                out["dense_layers"] = _stack_specs(per, cfg.first_k_dense)
+            return out
         if cfg.family != "dense":
             raise _unported(cfg)
         per = attn.cache_specs(cfg, batch, max_len, window=cfg.swa_window)
@@ -151,14 +223,26 @@ class LM:
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-        if cfg.family != "dense":
+        if cfg.family not in _PORTED:
             raise _unported(cfg)
         x = L.embed(tokens[:, None], params["embed"]["tok"],
                     torch_dtype(cfg.compute_dtype))
-        for i in range(cfg.n_layers):
-            x = self._attn_decode_block(
-                tree_index(params["layers"], i),
-                tree_index(cache["layers"], i), x, positions, sharder)
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                p = tree_index(params["layers"], i)
+                h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+                h, _ = m2.mamba2_decode(p["mixer"], cfg, sharder, h,
+                                        tree_index(cache["layers"], i))
+                x = x + h
+        else:
+            stacks = ["layers"]
+            if cfg.family == "moe" and cfg.first_k_dense:
+                stacks = ["dense_layers", "layers"]
+            for name in stacks:
+                for i in range(params[name]["ln1"].shape[0]):
+                    x = self._attn_decode_block(
+                        tree_index(params[name], i), tree_index(cache[name], i),
+                        x, positions, sharder)
         return self._logits_out(params, x, sharder)[:, 0], cache
 
     def _attn_decode_block(self, p, c, x, positions, sharder):
@@ -168,4 +252,10 @@ class LM:
                                      window=cfg.swa_window)
         x = x + h
         h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h, cfg.mlp_act, sharder)
+        if "mlp" in p:
+            return x + L.mlp(p["mlp"], h, cfg.mlp_act, sharder)
+        # decode-time MoE: the whole batch is ONE routing group ([B,1,d] ->
+        # [1,B,d]), so expert capacity is shared across the rows instead of
+        # a per-row floor (the JAX model's choice, transformer.py:429-435)
+        hh, _ = moe_mod.moe_block(p["moe"], cfg, sharder, h.transpose(0, 1))
+        return x + hh.transpose(0, 1)

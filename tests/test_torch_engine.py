@@ -90,7 +90,8 @@ def _serve(usf, server, prompts, max_new, request_cls, job_cls):
     return out
 
 
-@pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_110b"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_110b",
+                                  "deepseek_moe_16b"])
 def test_engine_matches_jax_engine_token_for_token(arch):
     """Same carried weights, same requests (more than the batch holds, so
     slots are reused): the greedy outputs are identical."""

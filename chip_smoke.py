@@ -6,11 +6,12 @@
 Drives the port's paths at full width with random weights from a seed:
 serving smollm-360m and deepseek-moe-16b (decode: K1, and K3 for the
 experts), the full-sequence forward of smollm-360m, hubert-xlarge and
-deepseek-moe-16b (prefill: K2, and K3), and the forward of mamba2-2.7b
-(K4). Checks every hand-written kernel on them against its plain torch
+deepseek-moe-16b (prefill: K2, and K3), the forward of mamba2-2.7b (K4),
+and the forward and decode of recurrentgemma-9b (K5 and K2 at head dim
+256; K1). Checks every hand-written kernel on them against its plain torch
 version. Phases, each fatal on failure:
 
-1. build   nvcc builds the four kernels from src/repro_torch/kernels/csrc,
+1. build   nvcc builds the five kernels from src/repro_torch/kernels/csrc,
            one process a source, all at once, and ptxas reports registers,
            shared memory and spills.
 2. kernels each kernel against its plain version on the card, fp32 with
@@ -22,7 +23,11 @@ version. Phases, each fatal on failure:
            ragged ones, contiguous and row-strided; K4 at the CPU tests'
            shapes, a ragged chunk and mamba2-2.7b's full width, against the
            exact recurrence and the model's chunked algebra, both in fp32,
-           elementwise (see `ssd_close`).
+           elementwise (see `ssd_close`); K5 at the CPU tests' shapes,
+           ragged S and W, and recurrentgemma-9b's full width (fp32);
+           K2 and K1 also at recurrentgemma-9b's local attention (MQA,
+           G=16, D=256, window 2048; B=1 S=4096 so that the window masks;
+           K1 on a 2048-slot ring past its wrap).
 3. serve   two full smollm-360m InferenceServers and a Gateway on the port's
            UsfRuntime(Topology(2,1), SchedCoop) answer four clients; the
            kernel's launch count must equal n_layers x engine steps.
@@ -66,8 +71,24 @@ version. Phases, each fatal on failure:
            logits) within 2e-2 of the largest logit, and every K4 call of
            the bf16 forward against the recurrence; K4 times and bound,
            forward times with K4 and the chunked scan, a profile, and the
-           decode step's time. Each model's weights are freed before the
-           next model's phase.
+           decode step's time.
+10. hybrid recurrentgemma-9b (38 layers: 12 superblocks of rec, rec,
+           local attention, and 2 tail rec blocks), drawn in bf16: its
+           forward at B=4, S=2048 (12 K2 and 26 K5 launches); every K5
+           call against the exact recurrence (fp32 TOL, elementwise) and
+           every K2 call against the plain version (with the bf16-P term);
+           the logits against the forward with both plain versions on
+           `conditioned` weights (2e-2 of the largest logit); 128
+           teacher-forced decode steps (K1, 12 launches a step, and the O(1)
+           recurrence) with every K1 call against the plain version, and
+           their logits against the same decode with the plain attention
+           (2e-2 of the largest logit; prefill against decode in bf16 is
+           `python -m repro_torch.launch.hybrid_conditioning`, ROADMAP
+           Queue 3); K5, its plain version and the model's CPU algorithm (the
+           doubling scan) run on the card, K2 against its plain version
+           and scaled_dot_product_attention at D=256, K1 on the hybrid's
+           rings; forward and decode step times, a profile, peak memory.
+Each model's weights are freed before the next model's phase.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -80,7 +101,6 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -102,7 +122,10 @@ GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 GMM_REPLACES = "src/repro/kernels/moe_gmm.py:44"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:75"
-KERNELS = ("decode_attention", "flash_attention", "moe_gmm", "ssd_scan")
+RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+RGLRU_REPLACES = "src/repro/kernels/rglru_scan.py:52"
+KERNELS = ("decode_attention", "flash_attention", "moe_gmm", "ssd_scan",
+           "rglru_scan")
 
 
 def log(msg: str) -> None:
@@ -190,6 +213,8 @@ DECODE_CASES = [
     ("D120 G4 W200", 2, 8, 2, 200, 120, [199, 120], None, ()),
     ("D128 G8 W130", 2, 8, 1, 130, 128, [129, 64], None, ()),
     ("D256 G2 W70", 1, 4, 2, 70, 256, [69], None, ()),
+    ("recurrentgemma ring W2048 G16 D256 w2048", 4, 16, 1, 2048, 256,
+     [2047, 2048, 3000, 6000], 2048, ()),
 ]
 
 
@@ -275,6 +300,9 @@ FLASH_CASES = [
     ("danube B1 S6144 w4096", 1, 6144, 6144, 32, 8, 120, True, 4096),
     ("smollm S1000 non-divisible", 2, 1000, 1000, 15, 5, 64, True, None),
     ("hubert S777 bidir non-divisible", 2, 777, 777, 16, 16, 80, False, None),
+    ("recurrentgemma narrow S150 G16 D256 w48", 1, 150, 150, 16, 1, 256, True, 48),
+    ("recurrentgemma B4 S2048 G16 D256 w2048", 4, 2048, 2048, 16, 1, 256, True, 2048),
+    ("recurrentgemma B1 S4096 G16 D256 w2048", 1, 4096, 4096, 16, 1, 256, True, 2048),
 ]
 
 
@@ -453,28 +481,6 @@ def checked_attention(tol):
         ops.flash_decode = kernel
 
 
-def conditioned(cfg, params):
-    """``params`` with wq, wk and wv rescaled to std 1/sqrt(d_model).
-
-    The model's init (as the JAX package's) takes the fan-in of wq [d,H,hd]
-    and wk, wv [d,KV,hd] as H and KV, so at full width q and k entries have
-    std ~8 and ~14 and attention scores std ~100: a near-hard argmax that
-    turns a last-bit difference into an O(1) logit change (phase 4c). With
-    the d_model fan-in the scores are O(1), as in a trained model, and a
-    logits comparison measures the kernel rather than that amplification."""
-
-    out = dict(params)
-    for stack in ("layers", "dense_layers"):
-        if "attn" not in params.get(stack, {}):
-            continue
-        attn = dict(params[stack]["attn"])
-        for key, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
-                       ("wv", cfg.n_kv_heads)):
-            attn[key] = attn[key] * math.sqrt(n / cfg.d_model)
-        out[stack] = {**params[stack], "attn": attn}
-    return out
-
-
 def phase_parity(dev, cfg, params, *, steps=16, B=4):
     """Full width, `steps` teacher-forced decode steps of B rows in bf16:
 
@@ -493,6 +499,7 @@ def phase_parity(dev, cfg, params, *, steps=16, B=4):
 
     import torch
 
+    from repro_torch.launch.inputs import conditioned
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.sharding import Sharder
 
@@ -704,14 +711,22 @@ def checked_prefill_attention(tol):
         ops.flash_attention = kernel
 
 
+def logits_gap(got, want):
+    """(max abs difference, largest |want|, argmax agreement) of two logits
+    tensors, compared a row at a time: at a 256k vocabulary one fp32 copy of
+    a B=4, S=2048 forward's logits is 8.4 GB."""
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.float().abs().max().item() for w in want)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return err, scale, agree
+
+
 def logits_close(got, want, what, tag="prefill"):
     """Logits within 2e-2 of the largest |logit| (see phase_parity b)."""
     import torch
 
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    ok = bool(torch.isfinite(got).all()) and err <= 2e-2 * scale
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    err, scale, agree = logits_gap(got, want)
+    ok = all(bool(torch.isfinite(g).all()) for g in got) and err <= 2e-2 * scale
     log(f"[{tag}] {what}: max_abs_err={err:.3e} (tol 2e-2 of the largest "
         f"|logit|, {scale:.3f}), argmax agreement {agree * 100:.2f}% "
         f"{'ok' if ok else 'FAIL'}")
@@ -725,7 +740,7 @@ def phase_prefill(dev, *, B=4):
 
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import flash_attention
-    from repro_torch.launch.inputs import make_batch
+    from repro_torch.launch.inputs import conditioned, make_batch
     from repro_torch.runtime.sharding import Sharder
     from repro_torch.train.step import make_prefill_step
 
@@ -838,7 +853,7 @@ def time_flash_shape(dev, flush, B, S, H, KV, D, causal, *, window=None,
         "plain_ms": time_ms(plain_fn, flush, plain_iters, warmup=1),
         "library_ms": None,
     }
-    if window is None:
+    if window is None or (causal and window >= S):  # a window that cuts nothing
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
             qT, kT, vT, is_causal=causal, enable_gqa=True), flush, iters)
     row["bound_ms"], row["bound_by"] = flash_bound(B, S, H, KV, D, causal, window,
@@ -1221,7 +1236,7 @@ def phase_moe(dev, flush, *, B=4, S=2048):
 
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import flash_attention, moe_gmm
-    from repro_torch.launch.inputs import make_batch
+    from repro_torch.launch.inputs import conditioned, make_batch
     from repro_torch.models.base import init_tree, param_count
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.sharding import Sharder
@@ -1494,6 +1509,308 @@ def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
     return {"fwd_k4": k4, "ssd_err": ssd_err, "row": row}
 
 
+# --------------------------------------------------------------------------- #
+# K5 against its plain version, and the hybrid family: recurrentgemma-9b
+# --------------------------------------------------------------------------- #
+RGLRU_CASES = [
+    # name, B, S, W, dtypes
+    ("test_kernels B1 S64 W128", 1, 64, 128, ("float32", "bfloat16")),
+    ("test_kernels B2 S128 W256", 2, 128, 256, ("float32", "bfloat16")),
+    ("test_kernels B1 S32 W128", 1, 32, 128, ("float32", "bfloat16")),
+    ("ragged B2 S37 W100", 2, 37, 100, ("float32", "bfloat16")),
+    ("ragged B1 S300 W129", 1, 300, 129, ("float32", "bfloat16")),
+    ("ragged B3 S1 W7", 3, 1, 7, ("float32", "bfloat16")),
+    # the model's a and b are fp32
+    ("recurrentgemma-9b B4 S2048 W4096", 4, 2048, 4096, ("float32",)),
+]
+
+
+def rglru_inputs(gen, dev, dtype, B, S, W):
+    """tests/test_kernels.py's distributions: a = sigmoid(N(0,1)) and
+    b = 0.1 N(0,1) in ``dtype`` as views of one wider buffer (so the kernel
+    reads them through strides); h0 = N(0,1) fp32."""
+    import torch
+
+    ab = torch.randn(B, S, 2 * W, generator=gen, device=dev)
+    ab[..., :W].sigmoid_()
+    ab[..., W:].mul_(0.1)
+    ab = ab.to(dtype)
+    h0 = torch.randn(B, W, generator=gen, device=dev)
+    return ab[..., :W], ab[..., W:], h0
+
+
+def rglru_close(y, h, wy, wh, tol):
+    """(max abs error, within tolerance) of K5's y and h against its plain
+    version, elementwise at rtol = atol = tol."""
+    import torch
+
+    err = max((y.float() - wy.float()).abs().max().item(), (h - wh).abs().max().item())
+    ok = (y.shape == wy.shape and y.dtype == wy.dtype
+          and torch.allclose(y.float(), wy.float(), rtol=tol, atol=tol)
+          and torch.allclose(h, wh, rtol=TOL["float32"], atol=TOL["float32"]))
+    return err, ok
+
+
+def phase_rglru_kernels(dev) -> dict:
+    """K5 against its plain version (the exact recurrence); returns the
+    largest abs error of the fp32 and of the bf16 cases."""
+    import torch
+
+    from repro_torch.kernels import ref, rglru_scan
+
+    gen = torch.Generator(device=dev).manual_seed(9753)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for name, B, S, W, dtypes in RGLRU_CASES:
+        for dname in dtypes:
+            tol = TOL[dname]
+            a, b, h0 = rglru_inputs(gen, dev, getattr(torch, dname), B, S, W)
+            y, h = rglru_scan.rglru_scan(a, b, h0)
+            torch.cuda.synchronize()
+            err, ok = rglru_close(y, h, *ref.rglru_ref(a, b, h0), tol)
+            worst[dname] = max(worst[dname], err)
+            log(f"[kernels] rglru_scan {name:34s} {dname:9s} max_abs_err={err:.3e} "
+                f"tol={tol:g} (+{tol:g} relative; h at fp32 tol) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"rglru_scan disagrees with its plain version: "
+                                     f"{name}, {dname}")
+            del a, b, h0, y, h
+    return worst
+
+
+def plain_hybrid():
+    """Every kernel of the hybrid path (K1, K2, K5) as its plain version."""
+    from repro_torch.kernels import ref
+
+    return plain_ops(flash_decode=plain_decode, flash_attention=plain_flash,
+                     rglru=ref.rglru_ref)
+
+
+@contextlib.contextmanager
+def checked_rglru():
+    """Run K5 and, on the same inputs, its plain version at every scan;
+    yields (max abs err, within fp32 TOL) per call, by ``rglru_close``."""
+    from repro_torch.kernels import ops, ref
+
+    kernel, found = ops.rglru, []
+
+    def checked(a, b, h0):
+        y, h = kernel(a, b, h0)
+        found.append(rglru_close(y, h, *ref.rglru_ref(a, b, h0), TOL["float32"]))
+        return y, h
+
+    ops.rglru = checked
+    try:
+        yield found
+    finally:
+        ops.rglru = kernel
+
+
+def rglru_bound(B, S, W, es):
+    """The least time of the scan: a and b read and y written once (``es``
+    bytes an element), h0 read and h written once in fp32; one FMA an
+    element at the fp32 rate."""
+    moved = 3 * B * S * W * es + 2 * B * W * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * S * W / PEAK_FLOPS["float32"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), moved
+
+
+def time_rglru_shape(dev, flush, B, S, W):
+    """K5, its plain version (the step recurrence) and the model's CPU
+    algorithm (the doubling scan) run on the card, at one shape in fp32 (the
+    model's a and b). No single PyTorch call computes the scan."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.rglru import associative_scan
+
+    a, b, h0 = rglru_inputs(torch.Generator(device=dev).manual_seed(10), dev,
+                            torch.float32, B, S, W)
+    a, b = a.contiguous(), b.contiguous()
+    row = {"ms": time_ms(lambda: ops.rglru(a, b, h0), flush),
+           "plain_ms": time_ms(lambda: ref.rglru_ref(a, b, h0), flush, 5, warmup=1),
+           "scan_ms": time_ms(lambda: associative_scan(a, b), flush, 5, warmup=1),
+           "library_ms": None}
+    (row["bound_ms"], row["bound_by"]), moved = rglru_bound(B, S, W, 4)
+    row["shape"] = (f"B={B} S={S} W={W} fp32 a/b/y, contiguous; plain = "
+                    f"ref.rglru_ref (the step recurrence)")
+    row["bound_note"] = f"{moved / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+    return row
+
+
+def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
+    """recurrentgemma-9b at full width: its forward (K2 at D=256, K5) and
+    its teacher-forced decode (K1), each kernel call against its plain
+    version and the logits of both paths against the same path with the
+    plain versions; timings."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan
+    from repro_torch.launch.inputs import conditioned, make_batch
+    from repro_torch.models.base import init_tree, param_count
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = get_arch("recurrentgemma_9b")
+    model, sharder = build_model(cfg), Sharder(None)
+    n_attn = cfg.n_layers // 3
+    n_rec = cfg.n_layers - n_attn
+    log(f"[hybrid] config {cfg.name}: {cfg.n_layers}L ({n_attn} superblocks of rec, "
+        f"rec, local attention + {n_rec - 2 * n_attn} tail rec) d_model "
+        f"{cfg.d_model} H {cfg.n_heads} KV {cfg.n_kv_heads} hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, lru_width {cfg.lru_width}, local window {cfg.local_window}, "
+        f"vocab {cfg.vocab}")
+    torch.cuda.reset_peak_memory_stats()
+    # drawn in the compute dtype (lam and the norms are read in fp32):
+    # fp32 weights and a bf16 copy would need ~58 GB
+    params = model.compute_params(init_tree(
+        torch.Generator(device=dev).manual_seed(0), model.param_specs(),
+        cfg.compute_dtype, dev))
+    torch.cuda.synchronize()
+    log(f"[hybrid] {cfg.name}: {param_count(model.param_specs()) / 1e9:.2f} B params "
+        f"drawn in {cfg.compute_dtype}: {gb(torch.cuda.memory_allocated())} on the "
+        f"card, peak {gb(torch.cuda.max_memory_allocated())}")
+
+    batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1), dev,
+                       with_labels=False)
+    step = make_prefill_step(model, sharder)
+    torch.cuda.synchronize()
+    flash_attention.flash_attention_fwd.launches = 0
+    rglru_scan.rglru_scan.launches = 0
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    k2 = flash_attention.flash_attention_fwd.launches
+    k5 = rglru_scan.rglru_scan.launches
+    finite = all(bool(torch.isfinite(row).all()) for row in logits)
+    ok = (tuple(logits.shape) == (B, S, cfg.vocab) and finite
+          and k2 == n_attn and k5 == n_rec)
+    log(f"[hybrid] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}: logits "
+        f"{tuple(logits.shape)}, finite {finite}; flash_attention launches {k2} "
+        f"(want {n_attn}), rglru_scan launches {k5} (want {n_rec}) "
+        f"{'ok' if ok else 'FAIL'}")
+    del logits
+
+    # a. every K5 and K2 call of the forward against its plain version
+    with checked_rglru() as found5, \
+            checked_prefill_attention(TOL["bfloat16"]) as found2:
+        step(params, batch)
+    rglru_err = max(e for e, _ in found5)
+    good = len(found5) == n_rec and all(held for _, held in found5)
+    log(f"[hybrid] a. {cfg.name} K5 calls of the forward against the exact "
+        f"recurrence on the model's fp32 a and b: {len(found5)} calls, "
+        f"max_abs_err={rglru_err:.3e} (fp32 tol {TOL['float32']:g} + "
+        f"{TOL['float32']:g} relative) {'ok' if good else 'FAIL'}")
+    ok &= good
+    attn_err = max(e.item() for e, _ in found2)
+    good = len(found2) == n_attn and max(x.item() for _, x in found2) <= 0
+    log(f"[hybrid] a. {cfg.name} {cfg.compute_dtype} K2 calls (D={cfg.hd}, G="
+        f"{cfg.n_heads // cfg.n_kv_heads}, window {cfg.local_window}) against the plain version on the model's inputs: "
+        f"{len(found2)} calls, max_abs_err={attn_err:.3e} (tol 2e-2 + 2e-2 "
+        f"relative + 2^-8 sum_j p_j |v_j|) {'ok' if good else 'FAIL'}")
+    ok &= good
+    del found5, found2
+
+    # b. logits with K2 and K5 against both plain versions, conditioned weights
+    cond = conditioned(cfg, params)
+    got = step(cond, batch)
+    with plain_hybrid():
+        want = step(cond, batch)
+    ok &= logits_close(got, want, f"b. {cfg.name} {cfg.compute_dtype} logits of "
+                       f"all {B * S} tokens, conditioned weights, K2 and K5 vs their plain "
+                       f"versions", "hybrid")
+    del got, want
+
+    # c. teacher-forced decode (K1, the O(1) recurrence) of a `prompt`-token
+    # prompt: every K1 call against the plain version on the same inputs;
+    # d. its logits against the same decode with the plain attention, each
+    # through its own cache (phase 4's checks). Prefill against decode in
+    # bf16 is `python -m repro_torch.launch.hybrid_conditioning`: the
+    # reference model's own two paths differ by more than 2e-2 of the
+    # largest logit in bf16 (ROADMAP Queue 3).
+    toks = batch["tokens"][:, :prompt].t().contiguous()
+    decode_attention.flash_decode.launches = 0
+    with torch.inference_mode():
+        with checked_attention(TOL["bfloat16"]) as found1:
+            got = decode_run(model, cond, fresh_cache(cfg, B, prompt, dev), toks,
+                             sharder)
+        k1 = decode_attention.flash_decode.launches
+        with plain_attention():
+            want = decode_run(model, cond, fresh_cache(cfg, B, prompt, dev), toks,
+                              sharder)
+    dec_err = max(e.item() for e, _ in found1)
+    good = (len(found1) == k1 == n_attn * prompt
+            and max(x.item() for _, x in found1) <= 0)
+    log(f"[hybrid] c. {cfg.name} {cfg.compute_dtype} K1 calls (D={cfg.hd}, G="
+        f"{cfg.n_heads // cfg.n_kv_heads}) of {prompt} teacher-forced decode steps "
+        f"x B={B} against the plain version on the model's inputs: {len(found1)} "
+        f"calls, {k1} launches (want {n_attn} x {prompt}), max_abs_err="
+        f"{dec_err:.3e} (tol 2e-2 + 2e-2 relative) {'ok' if good else 'FAIL'}")
+    ok &= good
+    ok &= logits_close(got, want, f"d. {cfg.name} {cfg.compute_dtype} decode logits "
+                       f"at all {prompt} positions, conditioned weights, K1 vs the "
+                       f"plain attention, each through its own cache", "hybrid")
+    del cond, got, want, found1
+    if not ok:
+        raise AssertionError("the hybrid path failed its checks")
+
+    # timings
+    rows = {"rglru": time_rglru_shape(dev, flush, B, S, cfg.lru_width),
+            "flash": time_flash_shape(dev, flush, B, S, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.hd, True, window=cfg.local_window),
+            "decode_prompt": time_decode_shape(dev, flush, B, cfg.n_heads,
+                                               cfg.n_kv_heads, prompt, cfg.hd),
+            "decode_ring": time_decode_shape(dev, flush, B, cfg.n_heads,
+                                             cfg.n_kv_heads, cfg.local_window,
+                                             cfg.hd)}
+    r = rows["rglru"]
+    log(f"[timing] rglru_scan ({r['shape']}): kernel_ms={r['ms']:.6f} plain_ms="
+        f"{r['plain_ms']:.6f} scan_ms={r['scan_ms']:.6f} (the model's doubling "
+        f"scan) library_ms=n/a (no single PyTorch call) bound_ms="
+        f"{r['bound_ms']:.6f} ({r['bound_by']}: {r['bound_note']}); "
+        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
+    r = rows["flash"]
+    lib = ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.6f} "
+           f"(scaled_dot_product_attention, causal: the window cuts nothing at "
+           f"S={S}; yardstick)")
+    log(f"[timing] flash_attention recurrentgemma shape ({r['shape']}): kernel_ms="
+        f"{r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms={lib} bound_ms="
+        f"{r['bound_ms']:.6f} ({r['bound_by']}); "
+        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
+    for tag in ("decode_prompt", "decode_ring"):
+        r = rows[tag]
+        log(f"[timing] flash_decode recurrentgemma {tag} ({r['shape']}): kernel_ms="
+            f"{r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms="
+            f"{r['library_ms']:.6f} (scaled_dot_product_attention, yardstick) "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})")
+    run = {"model": model, "params": params, "batch": batch}
+    fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_hybrid)
+    busy, launches, (k2_ms, k5_ms) = profile_forward(run, keys=("flash_fwd_",
+                                                                "rglru_fwd"))
+    log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
+        f"K2 and K5 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
+        f"their plain versions")
+    log(f"[profile] full-width {cfg.name} forward (torch.profiler, one forward): "
+        f"device busy {busy:.3f} ms ({busy / fwd_ms * 100:.1f}% of {fwd_ms:.3f} ms); "
+        f"{launches} kernel launches; rglru_scan {k5_ms:.3f} ms ({k5_ms / busy * 100:.1f}"
+        f"% of device time), flash_attention {k2_ms:.3f} ms "
+        f"({k2_ms / busy * 100:.1f}%)")
+    step_ms, plain_step_ms = time_engine_step(dev, cfg, params, B=B, steps=15)
+    busy, launches, (k1_ms,) = profile_steps(dev, cfg, params, B=B)
+    log(f"[timing] full-width {cfg.name} decode step B={B} (cache max_len 512): "
+        f"{step_ms:.3f} ms with K1, {plain_step_ms:.3f} ms with the plain "
+        f"attention; device busy {busy:.3f} ms a step ({busy / step_ms * 100:.1f}%, "
+        f"idle {100 - busy / step_ms * 100:.1f}%), {launches:.0f} kernel launches a "
+        f"step, flash_decode {k1_ms:.3f} ms ({k1_ms / busy * 100:.1f}% of device "
+        f"time)")
+    log(f"[hybrid] peak device memory of the {cfg.name} phase: "
+        f"{gb(torch.cuda.max_memory_allocated())}")
+    return {"fwd_k2": k2, "fwd_k5": k5, "dec_k1": k1, "rglru_err": rglru_err,
+            "attn_err": attn_err, "rows": rows}
+
+
 def card() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -1533,6 +1850,7 @@ def main() -> int:
     flash_err = phase_flash_kernels(dev)
     gmm_err = phase_gmm_kernels(dev)
     ssd_err = phase_ssd_kernels(dev)
+    rglru_err = phase_rglru_kernels(dev)
     serve = phase_serve(dev, cfg)
     params = serve.pop("params")
     phase_parity(dev, cfg, params)
@@ -1597,11 +1915,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ssm = phase_ssm(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid(dev, flush)
     log(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
 
     k1_paths = {"smollm-360m serve": serve["launches"],
-                "deepseek-moe-16b serve": moe["serve_k1"]}
-    k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"]}
+                "deepseek-moe-16b serve": moe["serve_k1"],
+                "recurrentgemma-9b decode": hybrid["dec_k1"]}
+    k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"],
+                "recurrentgemma-9b forward": hybrid["fwd_k2"]}
     k3_paths = {"deepseek-moe-16b serve": moe["serve_k3"],
                 "deepseek-moe-16b forward": moe["fwd_k3"]}
     kernels = [{
@@ -1612,6 +1935,8 @@ def main() -> int:
         "plain_ms": serve_row["plain_ms"], "bound_ms": serve_row["bound_ms"],
         "bound_by": serve_row["bound_by"], "library_ms": serve_row["library_ms"],
         "shape": serve_row["shape"], "long": long_row,
+        "recurrentgemma_prompt": hybrid["rows"]["decode_prompt"],
+        "recurrentgemma_ring": hybrid["rows"]["decode_ring"],
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": sum(k2_paths.values()),
@@ -1619,6 +1944,7 @@ def main() -> int:
         "max_abs_err": flash_err, **{key: rows["smollm"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "hubert": rows["hubert"], "long": rows["long"],
+        "recurrentgemma": hybrid["rows"]["flash"],
     }, {
         "name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,
         "replaces": GMM_REPLACES, "launches": sum(k3_paths.values()),
@@ -1634,6 +1960,15 @@ def main() -> int:
         **{key: ssm["row"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "chunked_ms")},
+    }, {
+        "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
+        "replaces": RGLRU_REPLACES, "launches": hybrid["fwd_k5"],
+        "launches_by_path": {"recurrentgemma-9b forward": hybrid["fwd_k5"]},
+        "max_abs_err": max(rglru_err["float32"], hybrid["rglru_err"]),
+        "max_abs_err_bf16": rglru_err["bfloat16"],
+        **{key: hybrid["rows"]["rglru"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "scan_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card(), flush=True)

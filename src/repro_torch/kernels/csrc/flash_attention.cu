@@ -38,7 +38,14 @@
 //   tile that is wholly masked for its 16 rows. CTAs with the longest
 //   causal rows are launched first.
 // * D is padded in shared memory to a multiple of 16 with zeros (20 -> 32,
-//   120 -> 128) and the padded columns are never written out.
+//   120 -> 128) and the padded columns are never written out. The bf16
+//   path takes D <= 128 and D = 256 (recurrentgemma-9b's local attention).
+// * D = 256 is register-bound: a warp's 16 output rows x 256 fp32
+//   accumulators are 128 registers a thread. So at D = 256 Q is not held
+//   in registers (64 more) but re-read from shared memory with ldmatrix at
+//   each K tile, and K/V tiles are 32 keys (16 score registers, not 32),
+//   with 8 warps (128 rows: at G = 16 eight heads of 16 queries). Shared
+//   memory: (128 + 4 x 32) rows of 264 bf16 = 135 KB, one CTA an SM.
 // * q, k, v and out are read and written through their strides, so the
 //   model layout [B,S,H,D] / [B,T,KV,D] needs no transposed copy; only the
 //   last dim must be contiguous. Sq and Sk need not be multiples of a
@@ -59,7 +66,6 @@ using bf16 = __nv_bfloat16;
 constexpr float NEG = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
-constexpr int BK = 64;            // keys a tile (bf16 path)
 constexpr int BK32 = 32;          // keys a tile (fp32 path)
 constexpr int THREADS32 = 256;    // fp32 path
 
@@ -179,12 +185,16 @@ template <int DP>
 struct Bf16Cfg {
   static constexpr int LD = DP + 8;          // padded row: conflict-free ldmatrix
   static constexpr int MAXW = DP <= 64 ? 12 : 8;  // warps a CTA (register budget)
+  static constexpr bool QREG = DP <= 128;    // Q fragments held in registers
+  static constexpr int BK = DP <= 128 ? 64 : 32;  // keys a K/V tile
 };
 
 template <int DP, bool VEC>
 __global__ void __launch_bounds__(32 * Bf16Cfg<DP>::MAXW)
 flash_fwd_bf16(const Params p) {
   constexpr int LD = Bf16Cfg<DP>::LD;
+  constexpr bool QREG = Bf16Cfg<DP>::QREG;
+  constexpr int BK = Bf16Cfg<DP>::BK;
   constexpr int KT = DP / 16;  // k-steps of Q K^T
   constexpr int NT = DP / 8;   // n-tiles of the output
   constexpr int ST = BK / 8;   // n-tiles of the scores
@@ -232,10 +242,12 @@ flash_fwd_bf16(const Params p) {
   const int wrow = warp * 16;
   const int wg = wrow / p.bq;
   const int wq0 = c.q0 + (wrow - wg * p.bq);
-  uint32_t qf[KT][4];
+  const bf16* qrow_s = qs + (wrow + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[QREG ? KT : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt)
-    ldmatrix_x4(qf[kt], qs + (wrow + (lane & 15)) * LD + kt * 16 + (lane >> 4) * 8);
+    for (int kt = 0; kt < KT; ++kt) ldmatrix_x4(qf[kt], qrow_s + kt * 16);
+  }
 
   float o[NT][4];
 #pragma unroll
@@ -268,13 +280,19 @@ flash_fwd_bf16(const Params p) {
       for (int j = 0; j < ST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
+          qa[0] = qf[kt][0], qa[1] = qf[kt][1], qa[2] = qf[kt][2], qa[3] = qf[kt][3];
+        } else {
+          ldmatrix_x4(qa, qrow_s + kt * 16);
+        }
 #pragma unroll
         for (int np = 0; np < ST / 2; ++np) {
           uint32_t bk[4];
           ldmatrix_x4(bk, kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kt * 16 +
                               ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kt], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kt], bk[2], bk[3]);
+          mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
         }
       }
       // scale and mask; row maxima over the tile
@@ -522,7 +540,7 @@ template <int DP>
 cudaError_t launch_bf16(Params p, int B, int KV, bool vec, cudaStream_t stream) {
   bf16_rows(p.G, Bf16Cfg<DP>::MAXW, p.gc, p.bq);
   const int M = p.gc * p.bq;
-  const size_t smem = (size_t)(M + 4 * BK) * Bf16Cfg<DP>::LD * sizeof(bf16);
+  const size_t smem = (size_t)(M + 4 * Bf16Cfg<DP>::BK) * Bf16Cfg<DP>::LD * sizeof(bf16);
   const int threads = M / 16 * 32;
   if (vec) return launch(flash_fwd_bf16<DP, true>, p, B, KV, threads, smem, stream);
   return launch(flash_fwd_bf16<DP, false>, p, B, KV, threads, smem, stream);
@@ -588,6 +606,7 @@ int repro_flash_attention(int device, int dtype, const void* q, const void* k, c
     case 96: return launch_bf16<96>(p, B, KV, vec, st);
     case 112: return launch_bf16<112>(p, B, KV, vec, st);
     case 128: return launch_bf16<128>(p, B, KV, vec, st);
+    case 256: return D == 256 ? launch_bf16<256>(p, B, KV, vec, st) : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

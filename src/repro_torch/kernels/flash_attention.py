@@ -23,9 +23,13 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: largest head dim of each path: the bf16 kernel keeps a warp's output
-#: rows in registers, the fp32 one stages rows in shared memory
-_MAX_D = {torch.float32: 256, torch.bfloat16: 128}
+#: the head dims each path takes: the fp32 kernel stages rows in shared
+#: memory (any D up to 256); the bf16 kernel keeps a warp's output rows in
+#: registers and is instantiated for D <= 128 (padded to a multiple of 16)
+#: and for D = 256 (recurrentgemma-9b)
+_HEAD_DIMS = {torch.float32: (frozenset(range(1, 257)), "D <= 256"),
+              torch.bfloat16: (frozenset((*range(1, 129), 256)),
+                               "D <= 128 or D = 256")}
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -85,8 +89,9 @@ def flash_attention_fwd(
                          f"{q.device}")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    if D > _MAX_D[q.dtype]:
-        raise ValueError(f"head dim {D} > {_MAX_D[q.dtype]} for {q.dtype}")
+    dims, which = _HEAD_DIMS[q.dtype]
+    if D not in dims:
+        raise ValueError(f"head dim {D}: the {q.dtype} kernel takes {which}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v need a contiguous last dim")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

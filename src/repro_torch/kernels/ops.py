@@ -4,9 +4,10 @@ The model keeps activations as ``[B,S,H,D]`` and caches as ``[B,W,KV,D]``;
 the attention kernels take ``[B,H,S,D]`` and ``[B,KV,W,D]``. Where the JAX
 adapters copy with ``swapaxes``, these pass transposed views: the CUDA
 kernels read them through their strides (and K2 writes its output in model
-layout). K3 and K4 take the model's layouts as they are (the expert-major
-dispatch buffer; ``[B,S,H,P]`` for the scan, which the JAX kernel wrapper
-moves to ``[B,H,S,P]`` with copies).
+layout). K3, K4 and K5 take the model's layouts as they are (the
+expert-major dispatch buffer; ``[B,S,H,P]`` for the SSD scan, which the JAX
+kernel wrapper moves to ``[B,H,S,P]`` with copies; ``[B,S,W]`` for the
+RG-LRU scan).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -50,3 +52,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x [B,S,H,P]; dt [B,S,H]; A [H]; Bm, Cm [B,S,N] (model layout) ->
     (y [B,S,H,P], final state [B,H,P,N] fp32)."""
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """a, b [B,S,W]; h0 [B,W] fp32 (model layout) -> (y [B,S,W] in a's
+    dtype, final state [B,W] fp32)."""
+    return _rg.rglru_scan(a, b, h0)

@@ -75,6 +75,17 @@ def ssd_ref(x, dt, A, Bm, Cm):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
+def rglru_ref(a, b, h0):
+    """Exact step recurrence h_t = a_t h_{t-1} + b_t in fp32. a, b [B,S,W];
+    h0 [B,W]. Returns (y [B,S,W] in a's dtype, h_final [B,W] fp32)."""
+    h = h0.float()
+    y = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + b[:, t].float()
+        y[:, t] = h
+    return y.to(a.dtype), h
+
+
 def moe_gmm_ref(x, w):
     """x [E,C,D]; w [E,D,F] -> [E,C,F] in x's dtype, summed in fp32."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

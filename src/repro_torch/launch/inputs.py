@@ -8,6 +8,7 @@ Batch layout, as in ``repro/launch/inputs.py``:
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -45,7 +46,9 @@ def make_decode_inputs(cfg, B: int, max_len: int, generator: torch.Generator,
                        device, *, pos: int = 0):
     """(cache, tokens [B] int32, positions [B] int32) on ``device``; the
     cache is empty (attention: k, v zeros, pos -1; mamba2: conv buffer and
-    state zeros). ``generator`` lives on ``device``."""
+    state zeros; hybrid: each local-attention layer a ring of
+    ``min(local_window, max_len)`` slots, each recurrent block an fp32
+    state and a conv buffer of zeros). ``generator`` lives on ``device``."""
     if cfg.frontend != "token" or cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: decode inputs for the "
                                   f"{cfg.family} family (ROADMAP M9)")
@@ -56,3 +59,33 @@ def make_decode_inputs(cfg, B: int, max_len: int, generator: torch.Generator,
                         dtype=torch.int32)
     p = torch.full((B,), pos, dtype=torch.int32, device=device)
     return cache, tok, p
+
+
+def conditioned(cfg, params):
+    """``params`` with wq, wk and wv rescaled to std 1/sqrt(d_model).
+
+    The model's init (as the JAX package's) takes the fan-in of wq [d,H,hd]
+    and wk, wv [d,KV,hd] as H and KV, so at full width q and k entries have
+    std ~8 and ~14 and attention scores std ~100: a near-hard argmax that
+    turns a last-bit difference into an O(1) logit change (ROADMAP Queue
+    3). With the d_model fan-in the scores are O(1), as in a trained model,
+    and a logits comparison measures the kernels rather than that
+    amplification.
+    The attention blocks are the stacks "layers" and "dense_layers", and
+    the hybrid's superblocks' "attn"."""
+
+    def scaled(block):
+        attn = dict(block["attn"])
+        for key, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                       ("wv", cfg.n_kv_heads)):
+            attn[key] = attn[key] * math.sqrt(n / cfg.d_model)
+        return {**block, "attn": attn}
+
+    out = dict(params)
+    for stack in ("layers", "dense_layers"):
+        if "attn" in params.get(stack, {}):
+            out[stack] = scaled(params[stack])
+    if "superblocks" in params:
+        sb = params["superblocks"]
+        out["superblocks"] = {**sb, "attn": scaled(sb["attn"])}
+    return out

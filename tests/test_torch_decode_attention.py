@@ -41,6 +41,9 @@ CASES = {
     "smollm full heads": (2, 15, 5, 96, 64, [0, 95], None, ()),
     "ring wrap window 48": (3, 15, 5, 48, 64, [47, 100, 1000], 48, ()),
     "fully masked row": (2, 3, 1, 40, 20, [5, 30], None, (0,)),
+    # recurrentgemma-9b's local attention heads (MQA, G=16, D=256) on a
+    # ring that wraps, with its window
+    "recurrentgemma D256 G16 ring window 64": (2, 16, 1, 64, 256, [63, 200], 64, ()),
 }
 
 

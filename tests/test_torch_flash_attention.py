@@ -40,6 +40,9 @@ CASES = {
     "smollm smoke G3 D20": (2, 40, 40, 3, 1, 20, True, None),
     # h2o-danube head dim with a window that cuts, narrow
     "danube D120 G4 window 48": (1, 150, 150, 8, 2, 120, True, 48),
+    # recurrentgemma-9b's local attention, narrow: MQA (G=16), D=256, a
+    # window that cuts
+    "recurrentgemma D256 G16 window 48": (1, 150, 150, 16, 1, 256, True, 48),
 }
 
 
@@ -140,3 +143,14 @@ def test_cuda_kernel_matches_plain(case, dtype):
     # the card sums in another order than the plain version: 1e-4 in fp32
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_head_dim_the_kernel_lacks_raises():
+    """The bf16 kernel is built for D <= 128 and D = 256 only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (torch.zeros(1, 16, 2, 192, dtype=torch.bfloat16, device="cuda")
+               for _ in range(3))
+    with pytest.raises(ValueError, match="head dim 192"):
+        tops.flash_attention(q, k, v)

@@ -4,19 +4,21 @@
     python3 chip_smoke.py
 
 Drives the port's paths at full width with random weights from a seed:
-serving smollm-360m and deepseek-moe-16b (decode: K1, and K3 for the
-experts), the full-sequence forward of smollm-360m, hubert-xlarge and
-deepseek-moe-16b (prefill: K2, and K3), the forward of mamba2-2.7b (K4),
-and the forward and decode of recurrentgemma-9b (K5 and K2 at head dim
-256; K1). Checks every hand-written kernel on them against its plain torch
-version. Phases, each fatal on failure:
+serving smollm-360m, deepseek-moe-16b, mamba2-2.7b and recurrentgemma-9b
+(decode: K1, K3 for the experts, no kernel in mamba2's step), the
+full-sequence forward of smollm-360m, hubert-xlarge and deepseek-moe-16b
+(prefill: K2, and K3), the forward of mamba2-2.7b (K4), and the forward and
+decode of recurrentgemma-9b (K5 and K2 at head dim 256; K1). Checks every
+hand-written kernel on them against its plain torch version. Phases, each
+fatal on failure:
 
 1. build   nvcc builds the five kernels from src/repro_torch/kernels/csrc,
            one process a source, all at once, and ptxas reports registers,
            shared memory and spills.
 2. kernels each kernel against its plain version on the card, fp32 with
            rtol=atol=1e-4 (the sums run in another order) and bf16 with
-           2e-2 (one bf16 rounding of the output): K1 at the decode cases,
+           2e-2 (one bf16 rounding of the output; K1 with `k1_limit`, which
+           follows the outputs' scale): K1 at the decode cases,
            K2 at the cases of the CPU tests and at the smollm-360m, hubert
            and danube prefill shapes and at non-divisible lengths; K3 at
            the CPU tests' shapes, deepseek's decode and prefill shapes and
@@ -27,10 +29,17 @@ version. Phases, each fatal on failure:
            ragged S and W, and recurrentgemma-9b's full width (fp32);
            K2 and K1 also at recurrentgemma-9b's local attention (MQA,
            G=16, D=256, window 2048; B=1 S=4096 so that the window masks;
-           K1 on a 2048-slot ring past its wrap).
+           K1 on a 2048-slot ring past its wrap). K1 in both layouts and at
+           the edges of its split of the cache (ragged last split, a window
+           ending inside a split, empty splits, a fully masked row at
+           W=2048, G=7 D=128, G=4 D=120); fully masked rows exactly 0; a
+           planted fault (the last split dropped) at W=32768 and at the
+           W=2048 ring must fail K1's bf16 limit.
 3. serve   two full smollm-360m InferenceServers and a Gateway on the port's
            UsfRuntime(Topology(2,1), SchedCoop) answer four clients; the
-           kernel's launch count must equal n_layers x engine steps.
+           kernel's launch count must equal attention layers x engine
+           steps (LM.attention_layers); when each request reached each
+           server and was admitted to a slot is logged.
 4. parity  16 teacher-forced decode steps at full width in bf16: every
            attention call of the kernel against the plain version on the
            same inputs (2e-2), and the logits with the kernel and with the
@@ -38,7 +47,9 @@ version. Phases, each fatal on failure:
            attention scores are O(1) (see `conditioned`).
 5. timing  the kernel, its plain version and a library call computing the
            same function, at the serve shape and at a long cache (CUDA
-           events, L2 flushed before each launch); engine step time.
+           events, L2 flushed before each launch; device time, and for K1's
+           rows also without the device spin and the wrapper's host time);
+           engine step time.
 6. prefill make_prefill_step on full-width smollm-360m (32 layers, B=4,
            S=2048) and hubert-xlarge (48 layers, B=4, S=1024 frames) in
            bf16: K2's launch count must rise by n_layers a forward; every
@@ -71,7 +82,8 @@ version. Phases, each fatal on failure:
            logits) within 2e-2 of the largest logit, and every K4 call of
            the bf16 forward against the recurrence; K4 times and bound,
            forward times with K4 and the chunked scan, a profile, and the
-           decode step's time.
+           decode step's time. Served as in 3 (no K1: 0 launches), each
+           admitted request from a fresh state (LM.reset_slot).
 10. hybrid recurrentgemma-9b (38 layers: 12 superblocks of rec, rec,
            local attention, and 2 tail rec blocks), drawn in bf16: its
            forward at B=4, S=2048 (12 K2 and 26 K5 launches); every K5
@@ -80,7 +92,8 @@ version. Phases, each fatal on failure:
            the logits against the forward with both plain versions on
            `conditioned` weights (2e-2 of the largest logit); 128
            teacher-forced decode steps (K1, 12 launches a step, and the O(1)
-           recurrence) with every K1 call against the plain version, and
+           recurrence) with every K1 call against the plain version
+           (`k1_limit`), and
            their logits against the same decode with the plain attention
            (2e-2 of the largest logit; prefill against decode in bf16 is
            `python -m repro_torch.launch.hybrid_conditioning`, ROADMAP
@@ -88,6 +101,9 @@ version. Phases, each fatal on failure:
            doubling scan) run on the card, K2 against its plain version
            and scaled_dot_product_attention at D=256, K1 on the hybrid's
            rings; forward and decode step times, a profile, peak memory.
+           Served as in 3 on the `conditioned` weights (K1 = 12 x engine
+           steps), then served again with every K1 call held against the
+           plain version (`k1_limit`).
 Each model's weights are freed before the next model's phase.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
@@ -114,6 +130,30 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # CUDA cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def k1_limit(want):
+    """K1's bf16 limit, elementwise, on |kernel - plain| for the plain
+    version's output ``want`` (the fp32 of a bf16 tensor): one bf16 ulp of
+    the output, 2^-7 |want| (both round nearly the same fp32 value, which
+    may straddle a rounding boundary), plus 2^-8 of the call's largest
+    |want|, at most 2e-2, for what differs in fp32 (the sum order; P enters
+    P V as hi + lo bf16 terms, ~16 bits). It follows the outputs' scale: a
+    fixed 2e-2 would be twice a typical output at W=32768 (~0.009), where
+    phase 2's planted fault moves outputs by ~1e-3. Never looser than 2e-2
+    + 2e-2 relative."""
+    import torch
+
+    return 2.0 ** -7 * want.abs() + torch.clamp(2.0 ** -8 * want.abs().amax(),
+                                                max=2e-2)
+
+
+def fixed_limit(tol):
+    """tol + tol relative, elementwise, on |kernel - plain|."""
+    return lambda want: tol + tol * want.abs()
+
+
+K1_LIMIT_TEXT = "2^-7 |want| + min(2e-2, 2^-8 max|want|)"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention.py:67"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -215,7 +255,22 @@ DECODE_CASES = [
     ("D256 G2 W70", 1, 4, 2, 70, 256, [69], None, ()),
     ("recurrentgemma ring W2048 G16 D256 w2048", 4, 16, 1, 2048, 256,
      [2047, 2048, 3000, 6000], 2048, ()),
+    # the edges of the kernel's split of W (64-slot tiles; see
+    # decode_attention._plan): W not a multiple of a split; a window ending
+    # inside a split, most splits wholly out of it; splits wholly empty
+    # beside valid ones; a fully masked row at W=2048; G=7 and G=4 at D=128
+    # and D=120 (padded to 128 in shared memory)
+    ("W200 ragged last split", 2, 8, 2, 200, 64, [199, 150], None, ()),
+    ("W2048 window 100 inside a split", 2, 6, 2, 2048, 64, [1999, 3000], 100, ()),
+    ("W2048 empty splits beside valid", 2, 6, 2, 2048, 32, [70, 2047], None, ()),
+    ("W2048 fully masked row", 2, 6, 3, 2048, 64, [5, 1500], None, (0,)),
+    ("G16 D256 W2048 B1", 1, 16, 1, 2048, 256, [3000], 2048, ()),
+    ("G7 D128 W300", 2, 14, 2, 300, 128, [299, 100], None, ()),
+    ("G4 D120 W300 window 200", 2, 8, 2, 300, 120, [299, 250], 200, ()),
 ]
+# the bf16 cases at which phase 2 plants a fault that the limit must catch
+PLANTED_FAULT_CASES = ("long cache W32768",
+                       "recurrentgemma ring W2048 G16 D256 w2048")
 
 
 def phase_kernels(dev) -> float:
@@ -224,36 +279,61 @@ def phase_kernels(dev) -> float:
 
     from repro_torch.kernels import decode_attention, ops
 
+    def kernel_layout(q, k, v, c, p, *, window):
+        """The kernel's own layout [B,KV,W,D], contiguous."""
+        return decode_attention.flash_decode(
+            q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+            c, p, window=window)
+
     gen = torch.Generator(device=dev).manual_seed(1234)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        tol = TOL[str(dtype).removeprefix("torch.")]
+        limit = (fixed_limit(TOL["float32"]) if dtype == torch.float32
+                 else k1_limit)
+        limit_text = (f"{TOL['float32']:g} + {TOL['float32']:g} relative"
+                      if dtype == torch.float32 else K1_LIMIT_TEXT)
         for name, B, H, KV, W, D, qpos, window, masked in DECODE_CASES:
             q, k, v, cpos, qp = decode_inputs(gen, dev, dtype, B, H, KV, W, D,
                                               qpos, masked_rows=masked)
-            layouts = {"model layout": (ops.flash_decode, k, v)}
-            if W <= 512:  # the kernel's own layout, contiguous
-                layouts["kernel layout"] = (
-                    lambda q, k, v, c, p, *, window: decode_attention.flash_decode(
-                        q, k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), c, p, window=window),
-                    k, v)
             expect = plain_decode(q, k, v, cpos, qp, window=window).float()
-            for lay, (fn, kk, vv) in layouts.items():
-                out = fn(q, kk, vv, cpos, qp, window=window)
+            slots = decode_attention._slots(
+                dev.index, decode_attention._DTYPE_CODE[dtype], D)
+            nsplit, split_len = decode_attention._plan(B, KV, H // KV, W, slots)
+            for lay, fn in (("model layout", ops.flash_decode),
+                            ("kernel layout", kernel_layout)):
+                out = fn(q, k, v, cpos, qp, window=window)
                 torch.cuda.synchronize()
                 got = out.float()
                 err = (got - expect).abs().max().item()
                 worst = max(worst, err)
-                ok = torch.allclose(got, expect, rtol=tol, atol=tol)
+                ok = bool(((got - expect).abs() <= limit(expect)).all())
                 for b in masked:
                     ok = ok and bool((got[b] == 0).all())
-                log(f"[kernels] flash_decode {name:24s} {lay:12s} "
-                    f"{str(dtype):14s} max_abs_err={err:.3e} tol={tol:g} "
+                log(f"[kernels] flash_decode {name:32s} {lay:12s} "
+                    f"splits {nsplit:3d} x {split_len:5d} of {slots} CTA slots "
+                    f"{str(dtype):14s} max_abs_err={err:.3e} (|want| up to "
+                    f"{expect.abs().max().item():.3e}; limit {limit_text}) "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"flash_decode disagrees with its "
                                          f"plain version: {name}, {lay}, {dtype}")
+            if dtype == torch.bfloat16 and name in PLANTED_FAULT_CASES:
+                # a planted fault the limit must resolve: the kernel on the
+                # same inputs with the last split's slots masked, which is
+                # what a kernel that dropped its last split would write
+                lo = (nsplit - 1) * split_len
+                dropped = cpos.clone()
+                dropped[:, lo:] = -1
+                got = ops.flash_decode(q, k, v, dropped, qp, window=window).float()
+                over = (got - expect).abs() > k1_limit(expect)
+                log(f"[kernels] flash_decode {name:32s} planted fault, the last "
+                    f"of {nsplit} splits (slots {lo}..{W - 1}) dropped: max_abs_err="
+                    f"{(got - expect).abs().max().item():.3e}, {int(over.sum())} "
+                    f"elements over the limit: "
+                    f"{'FAIL, as it must' if over.any() else 'passes: NOT RESOLVED'}")
+                if not over.any():
+                    raise AssertionError(f"K1's bf16 limit does not resolve a "
+                                         f"dropped split at {name}")
     return worst
 
 
@@ -345,11 +425,16 @@ def phase_flash_kernels(dev) -> float:
     return worst
 
 
-def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4):
+def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
+                checked=False):
     """Two servers + a gateway answer `clients` requests; returns stats.
 
     ``params`` (one tree both servers share) replaces each server's own
-    seeded initialisation."""
+    seeded initialisation. With ``checked`` every K1 call of the run is
+    also held against the plain version on the same inputs (``k1_limit``),
+    and the times include the checks. Logs when each request reached each
+    server (the client's task ran) and when the server admitted it to a
+    slot."""
     import torch
 
     from repro_torch.core.policies import SchedCoop
@@ -370,24 +455,34 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4):
         prompts = [torch.randint(0, cfg.vocab, (prompt_len,), generator=g).tolist()
                    for _ in range(clients)]
         results: dict[int, dict] = {}
+        requests = {s.name: [] for s in servers}
+        for s in servers:
+            def submit(req, submit=s.submit, kept=requests[s.name]):
+                kept.append(req)
+                return submit(req)
+            s.submit = submit
 
         def client(i):
             return lambda: results.__setitem__(
                 i, gw.handle(prompts[i], max_new=max_new, timeout=600.0))
 
-        decode_attention.flash_decode.launches = 0
-        moe_gmm.moe_gmm.launches = 0
-        t0 = time.perf_counter()
-        for s in servers:
-            s.start()
-        tasks = [usf.create(client(i), job=gw.job, name=f"client{i}")
-                 for i in range(clients)]
-        for t in tasks:
-            if not usf.join(t, timeout=900.0):
-                raise AssertionError(f"client {t} did not finish")
-        wall = time.perf_counter() - t0
-        launches = decode_attention.flash_decode.launches
-        gmm_launches = moe_gmm.moe_gmm.launches
+        checks = (checked_attention(k1_limit) if checked
+                  else contextlib.nullcontext([]))
+        with checks as found:
+            decode_attention.flash_decode.launches = 0
+            moe_gmm.moe_gmm.launches = 0
+            m0 = time.monotonic()
+            t0 = time.perf_counter()
+            for s in servers:
+                s.start()
+            tasks = [usf.create(client(i), job=gw.job, name=f"client{i}")
+                     for i in range(clients)]
+            for t in tasks:
+                if not usf.join(t, timeout=900.0):
+                    raise AssertionError(f"client {t} did not finish")
+            wall = time.perf_counter() - t0
+            launches = decode_attention.flash_decode.launches
+            gmm_launches = moe_gmm.moe_gmm.launches
         for s in servers:
             s.stop()
         served = [s.served for s in servers]
@@ -402,23 +497,38 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4):
         for name, out in r["outputs"].items():
             if len(out) != max_new or not all(0 <= t < cfg.vocab for t in out):
                 raise AssertionError(f"client {i} {name}: bad output {out}")
-    want = cfg.n_layers * sum(steps)
+    n_attn = servers[0].model.attention_layers()
+    want = n_attn * sum(steps)
     moe_layers = cfg.n_layers - cfg.first_k_dense if cfg.family == "moe" else 0
     want_gmm = 3 * moe_layers * sum(steps)
     log(f"[serve] {cfg.name}: {clients} clients x {len(servers)} servers served "
         f"{served}; engine steps {steps}; flash_decode launches {launches} (want "
-        f"n_layers {cfg.n_layers} x {sum(steps)} = {want}); moe_gmm launches "
+        f"{n_attn} attention layers x {sum(steps)} = {want}); moe_gmm launches "
         f"{gmm_launches} (want 3 x {moe_layers} MoE layers x {sum(steps)} = "
         f"{want_gmm})")
     if launches != want or gmm_launches != want_gmm:
         raise AssertionError(f"flash_decode launched {launches} times (want "
                              f"{want}), moe_gmm {gmm_launches} (want {want_gmm}): "
                              f"the decode path bypassed a kernel")
+    if checked:
+        err = max((e.item() for e, _ in found), default=0.0)
+        ok = len(found) == launches and all(x.item() <= 0 for _, x in found)
+        log(f"[serve] {cfg.name}: every K1 call of the served run against the "
+            f"plain version on the same inputs: {len(found)} calls, max_abs_err="
+            f"{err:.3e} (limit {K1_LIMIT_TEXT}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a served K1 call disagrees with the plain version")
     same = sum(r["outputs"]["srv-a"] == r["outputs"]["srv-b"]
                for r in results.values())
     tokens = sum(len(o) for r in results.values() for o in r["outputs"].values())
     lat = sorted(r["latency"] for r in results.values())
-    log(f"[serve] wall {wall:.3f} s; {tokens} generated tokens "
+    for name, reqs in requests.items():
+        log(f"[serve] {cfg.name} {name}: requests (s after the start: reached the "
+            f"server, admitted to a slot, done): " + ", ".join(
+                f"({r.arrival - m0:.3f}, {r.started - m0:.3f}, {r.finished - m0:.3f})"
+                for r in reqs))
+    log(f"[serve] {cfg.name}{' (checked)' if checked else ''}: wall "
+        f"{wall:.3f} s; {tokens} generated tokens "
         f"({tokens / wall:.1f} tok/s, prefill {prompt_len} x "
         f"{clients * len(servers)} more); request latency s {lat}; "
         f"identical outputs on both servers (same seed) for {same}/{clients}")
@@ -459,10 +569,10 @@ def fresh_cache(cfg, B, max_len, dev):
 
 
 @contextlib.contextmanager
-def checked_attention(tol):
+def checked_attention(limit):
     """Run the kernel and, on the same inputs, the plain version at every
     decode-attention call; yields the list of (max abs err, worst excess
-    over the tolerance) per call."""
+    over ``limit(want)``, elementwise) per call."""
     from repro_torch.kernels import ops
 
     kernel, found = ops.flash_decode, []
@@ -471,7 +581,7 @@ def checked_attention(tol):
         out = kernel(q, k, v, cpos, qpos, window=window)
         want = plain_decode(q, k, v, cpos, qpos, window=window).float()
         d = (out.float() - want).abs()
-        found.append((d.max(), (d - tol - tol * want.abs()).max()))
+        found.append((d.max(), (d - limit(want)).max()))
         return out
 
     ops.flash_decode = checked
@@ -517,7 +627,7 @@ def phase_parity(dev, cfg, params, *, steps=16, B=4):
         return " ".join(f"{x:.3g}" for x in (a - b).abs().amax(dim=(1, 2)).tolist())
 
     with torch.inference_mode():
-        with checked_attention(TOL["bfloat16"]) as found:
+        with checked_attention(fixed_limit(TOL["bfloat16"])) as found:
             decode_run(model, params, fresh_cache(cfg, B, 512, dev), toks, sharder)
         got, want = kernel_and_plain(conditioned(cfg, params))
         raw_k, raw_p = kernel_and_plain(params)
@@ -552,8 +662,14 @@ def phase_parity(dev, cfg, params, *, steps=16, B=4):
     return attn_err
 
 
-def time_ms(fn, flush, iters=50, warmup=5) -> float:
-    """Median device time of one call, the L2 flushed before each."""
+def time_ms(fn, flush, iters=50, warmup=5, *, spin=True) -> float:
+    """Median device time of one call, the L2 flushed before each. A spin
+    of ~0.5 ms on the device (``torch.cuda._sleep``) precedes each timed
+    call, so that the host has queued the call before the device reaches
+    it: the events then time the device alone, and not the host's work in
+    a wrapper whose kernel is shorter than that work. With ``spin=False``
+    (the earlier timer) the events time the device or the host's
+    enqueue of the call, whichever is longer."""
     import torch
 
     for _ in range(warmup):
@@ -561,6 +677,8 @@ def time_ms(fn, flush, iters=50, warmup=5) -> float:
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(1_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -580,8 +698,26 @@ def decode_bound(B, H, KV, W, D, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def host_us(fn, calls=200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work: the
+    calls are issued behind a ~25 ms device spin, so none waits on the
+    device."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def time_decode_shape(dev, flush, B, H, KV, W, D):
-    """Kernel, plain and library times at one shape, every slot valid."""
+    """Kernel, plain and library times at one shape, every slot valid:
+    device times (``time_ms``), the same without the spin (``*_nospin``),
+    and the host's enqueue time of the kernel's wrapper."""
     import torch
     import torch.nn.functional as F
 
@@ -593,15 +729,27 @@ def time_decode_shape(dev, flush, B, H, KV, W, D):
     q4 = q[:, :, None, :]
     kT, vT = k.transpose(1, 2), v.transpose(1, 2)
     mask = ((cpos >= 0) & (cpos <= qp[:, None]))[:, None, None, :]
-    row = {
-        "ms": time_ms(lambda: ops.flash_decode(q, k, v, cpos, qp), flush),
-        "plain_ms": time_ms(lambda: plain_decode(q, k, v, cpos, qp), flush),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kT, vT, attn_mask=mask, enable_gqa=True), flush),
-    }
+    fns = {"ms": lambda: ops.flash_decode(q, k, v, cpos, qp),
+           "plain_ms": lambda: plain_decode(q, k, v, cpos, qp),
+           "library_ms": lambda: F.scaled_dot_product_attention(
+               q4, kT, vT, attn_mask=mask, enable_gqa=True)}
+    row = {key: time_ms(fn, flush) for key, fn in fns.items()}
+    row.update({f"{key}_nospin": time_ms(fn, flush, spin=False)
+                for key, fn in fns.items()})
+    row["host_us"] = host_us(fns["ms"])
     row["bound_ms"], row["bound_by"] = decode_bound(B, H, KV, W, D, "bfloat16")
     row["shape"] = f"B={B} H={H} KV={KV} W={W} D={D} bf16, model layout"
     return row
+
+
+def decode_row_text(row) -> str:
+    return (f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+            f"library_ms={row['library_ms']:.6f} (scaled_dot_product_attention, "
+            f"yardstick) bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); without the device spin (host "
+            f"enqueue shows): kernel {row['ms_nospin']:.6f} plain "
+            f"{row['plain_ms_nospin']:.6f} library {row['library_ms_nospin']:.6f}; "
+            f"the wrapper's host time {row['host_us']:.1f} us a call")
 
 
 def time_engine_step(dev, cfg, params, *, B=4, steps=30, plain=None):
@@ -635,10 +783,12 @@ def time_engine_step(dev, cfg, params, *, B=4, steps=30, plain=None):
     return kernel_ms, plain_ms
 
 
-def profile_steps(dev, cfg, params, *, B=4, steps=3, keys=("flash_decode_kernel",)):
+def profile_steps(dev, cfg, params, *, B=4, steps=3, keys=("flash_decode_",)):
     """torch.profiler over `steps` full-width decode steps (after one
     warm-up step): device-busy ms, kernel launches and the device ms of the
-    kernels named by each of ``keys``, each per step."""
+    kernels named by each of ``keys``, each per step. K1's key covers its
+    split kernel (flash_decode_bf16, flash_decode_f32) and its combine
+    (flash_decode_combine)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1335,7 +1485,7 @@ def phase_moe(dev, flush, *, B=4, S=2048):
         f"{serve['tok_per_s']:.1f} generated tok/s over {serve['steps']} steps in "
         f"{serve['wall_s']:.3f} s")
     busy, launches, (k1_ms, k3_ms) = profile_steps(
-        dev, cfg, params, keys=("flash_decode_kernel", "gmm_"))
+        dev, cfg, params, keys=("flash_decode_", "gmm_"))
     log(f"[profile] full-width {cfg.name} decode step B=4 (torch.profiler, 3 "
         f"steps): device busy {busy:.3f} ms a step ({busy / step_ms * 100:.1f}% of "
         f"the {step_ms:.3f} ms step, idle {100 - busy / step_ms * 100:.1f}%); "
@@ -1479,6 +1629,11 @@ def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
                     f"(fp32)") and len(found) == cfg.n_layers
     del cond, cond32, params32
 
+    # served as smollm and deepseek are, on the same bf16 weights: each
+    # admitted request starts from a fresh state (LM.reset_slot); no K1
+    serve = phase_serve(dev, cfg, params=params)
+    serve.pop("params")
+
     row = time_ssd_shape(dev, flush, B, S, H, cfg.ssm_head_dim, cfg.ssm_state,
                          cfg.ssm_chunk)
     log(f"[timing] ssd_scan ({row['shape']}): kernel_ms={row['ms']:.6f} plain_ms="
@@ -1501,7 +1656,9 @@ def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
     busy, launches, _ = profile_steps(dev, cfg, params, keys=())
     log(f"[timing] full-width {cfg.name} decode step B=4 (no kernel on this "
         f"path): {step_ms:.3f} ms; device busy {busy:.3f} ms a step "
-        f"({busy / step_ms * 100:.1f}%), {launches:.0f} kernel launches a step")
+        f"({busy / step_ms * 100:.1f}%), {launches:.0f} kernel launches a step; "
+        f"engine {serve['tok_per_s']:.1f} generated tok/s over {serve['steps']} "
+        f"steps in {serve['wall_s']:.3f} s")
     log(f"[ssm] peak device memory of the {cfg.name} phase: "
         f"{gb(torch.cuda.max_memory_allocated())}")
     if not ok:
@@ -1733,7 +1890,7 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
     toks = batch["tokens"][:, :prompt].t().contiguous()
     decode_attention.flash_decode.launches = 0
     with torch.inference_mode():
-        with checked_attention(TOL["bfloat16"]) as found1:
+        with checked_attention(k1_limit) as found1:
             got = decode_run(model, cond, fresh_cache(cfg, B, prompt, dev), toks,
                              sharder)
         k1 = decode_attention.flash_decode.launches
@@ -1747,14 +1904,27 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
         f"{cfg.n_heads // cfg.n_kv_heads}) of {prompt} teacher-forced decode steps "
         f"x B={B} against the plain version on the model's inputs: {len(found1)} "
         f"calls, {k1} launches (want {n_attn} x {prompt}), max_abs_err="
-        f"{dec_err:.3e} (tol 2e-2 + 2e-2 relative) {'ok' if good else 'FAIL'}")
+        f"{dec_err:.3e} (limit {K1_LIMIT_TEXT}) {'ok' if good else 'FAIL'}")
     ok &= good
     ok &= logits_close(got, want, f"d. {cfg.name} {cfg.compute_dtype} decode logits "
                        f"at all {prompt} positions, conditioned weights, K1 vs the "
                        f"plain attention, each through its own cache", "hybrid")
-    del cond, got, want, found1
+    del got, want, found1
     if not ok:
         raise AssertionError("the hybrid path failed its checks")
+
+    # served as deepseek is (each admitted request starts from a fresh
+    # state, LM.reset_slot): K1 = 12 x engine steps; then again with every
+    # K1 call held against the plain version. On the `conditioned` weights
+    # of c and d (the same tensors but wq, wk, wv): under the specs' init
+    # recurrentgemma's attention scores reach ~1,500 (wk and wv take KV = 1
+    # as their fan-in), and at two near-tied slots the plain version's own
+    # fp32 error moves an output by more than K1's limit (PERF.md section
+    # 7; `python src/repro_torch/launch/k1_probe.py witness`)
+    serve = phase_serve(dev, cfg, params=cond)
+    serve.pop("params")
+    phase_serve(dev, cfg, params=cond, checked=True).pop("params")
+    del cond
 
     # timings
     rows = {"rglru": time_rglru_shape(dev, flush, B, S, cfg.lru_width),
@@ -1781,10 +1951,8 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
         f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
     for tag in ("decode_prompt", "decode_ring"):
         r = rows[tag]
-        log(f"[timing] flash_decode recurrentgemma {tag} ({r['shape']}): kernel_ms="
-            f"{r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms="
-            f"{r['library_ms']:.6f} (scaled_dot_product_attention, yardstick) "
-            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})")
+        log(f"[timing] flash_decode recurrentgemma {tag} ({r['shape']}): "
+            f"{decode_row_text(r)}")
     run = {"model": model, "params": params, "batch": batch}
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_hybrid)
     busy, launches, (k2_ms, k5_ms) = profile_forward(run, keys=("flash_fwd_",
@@ -1804,11 +1972,12 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
         f"attention; device busy {busy:.3f} ms a step ({busy / step_ms * 100:.1f}%, "
         f"idle {100 - busy / step_ms * 100:.1f}%), {launches:.0f} kernel launches a "
         f"step, flash_decode {k1_ms:.3f} ms ({k1_ms / busy * 100:.1f}% of device "
-        f"time)")
+        f"time); engine {serve['tok_per_s']:.1f} generated tok/s over "
+        f"{serve['steps']} steps in {serve['wall_s']:.3f} s")
     log(f"[hybrid] peak device memory of the {cfg.name} phase: "
         f"{gb(torch.cuda.max_memory_allocated())}")
-    return {"fwd_k2": k2, "fwd_k5": k5, "dec_k1": k1, "rglru_err": rglru_err,
-            "attn_err": attn_err, "rows": rows}
+    return {"fwd_k2": k2, "fwd_k5": k5, "dec_k1": k1, "serve_k1": serve["launches"],
+            "rglru_err": rglru_err, "attn_err": attn_err, "rows": rows}
 
 
 def card() -> str:
@@ -1862,10 +2031,7 @@ def main() -> int:
     long_row = time_decode_shape(dev, flush, B, H, KV, 32768, D)
     for tag, row in (("serve", serve_row), ("long", long_row)):
         log(f"[timing] flash_decode {tag} shape ({row['shape']}): "
-            f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
-            f"library_ms={row['library_ms']:.6f} (scaled_dot_product_attention, "
-            f"yardstick) bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
-            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+            f"{decode_row_text(row)}")
     step_ms, plain_step_ms = time_engine_step(dev, cfg, params)
     log(f"[timing] full-width decode step B=4: {step_ms:.3f} ms with the kernel, "
         f"{plain_step_ms:.3f} ms with the plain attention; engine "
@@ -1922,6 +2088,7 @@ def main() -> int:
 
     k1_paths = {"smollm-360m serve": serve["launches"],
                 "deepseek-moe-16b serve": moe["serve_k1"],
+                "recurrentgemma-9b serve": hybrid["serve_k1"],
                 "recurrentgemma-9b decode": hybrid["dec_k1"]}
     k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"],
                 "recurrentgemma-9b forward": hybrid["fwd_k2"]}

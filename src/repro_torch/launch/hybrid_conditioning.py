@@ -8,19 +8,22 @@ weights and tokens of ``chip_smoke.py`` phase 10. Prints, at every position
 of the 128-token prompt, the largest logit difference of:
 
 1. the forward (K2, K5) against teacher-forced decode (K1 and the O(1)
-   recurrence), held against 2e-2 of the largest logit;
+   recurrence), a reading beside 2e-2 of the largest logit;
 2. the same two paths with every kernel replaced by its plain version on
-   both sides (the control), held against the same bound;
+   both sides (the control), read the same way;
 3. each path with the kernels against itself with the plain versions, and
    each path's kernels against the other path's plain versions;
 4. the forward with the embedding table scaled by 1 + 2^-8, and with each
    entry scaled by 1 + 2^-8 or 1 - 2^-8 at random and rounded to bf16,
    against the forward;
-5. the same weights upcast to fp32: forward against teacher-forced decode.
+5. the same weights upcast to fp32: forward against teacher-forced decode,
+   held against 2e-2 of the largest logit.
 
-These are the measurements behind ROADMAP Queue 3's finding that bf16
-cannot resolve prefill against decode at 2e-2 of the largest logit for
-this model, with or without the kernels. Exits 0 whatever they read.
+These are the measurements behind ROADMAP Queue 3's settled finding F2:
+bf16 cannot resolve prefill against decode at 2e-2 of the largest logit
+for this model, with or without the kernels (1 and 2 read alike), so 1
+and 2 are readings of the model's own gap and 5 is the criterion. Exits 0
+whatever they read.
 """
 
 from __future__ import annotations
@@ -65,14 +68,20 @@ def plain_kernels():
         ops.flash_attention, ops.flash_decode, ops.rglru = saved
 
 
-def held(what, got, want):
-    """``compare``, and whether the gap is within BOUND of the largest logit."""
+def held(what, got, want, *, bound=True):
+    """``compare``, and the gap as a share of the largest logit: held
+    against BOUND of it, or with ``bound=False`` printed as a reading."""
     compare(what, got, want)
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    print(f"   {err / scale * 100:.3f}% of the largest |logit|: "
-          f"{'within' if err <= BOUND * scale else 'FAILS'} {BOUND:g} of it "
-          f"({BOUND * scale:.4f})", flush=True)
+    if bound:
+        verdict = (f"{'within' if err <= BOUND * scale else 'FAILS'} {BOUND:g} "
+                   f"of it ({BOUND * scale:.4f})")
+    else:
+        verdict = (f"a reading, beside {BOUND:g} of it ({BOUND * scale:.4f}): "
+                   f"the model's own bf16 gap (ROADMAP Queue 3, F2)")
+    print(f"   {err / scale * 100:.3f}% of the largest |logit|: {verdict}",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -102,9 +111,10 @@ def main(argv=None) -> int:
     with plain_kernels():
         pre_p = fwd(params, short)
         dec_p = teacher_forced(model, params, cfg, toks, dev, sharder)
-    held("1. forward (K2, K5) vs teacher-forced decode (K1)", pre_k, dec_k)
+    held("1. forward (K2, K5) vs teacher-forced decode (K1)", pre_k, dec_k,
+         bound=False)
     held("2. control: the same, every kernel its plain version on both sides",
-         pre_p, dec_p)
+         pre_p, dec_p, bound=False)
     compare("3a. forward, kernels vs plain versions", pre_k, pre_p)
     compare("3b. decode, kernel vs plain version", dec_k, dec_p)
     compare("3c. forward with the kernels vs decode with the plain version",

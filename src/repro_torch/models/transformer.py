@@ -268,6 +268,39 @@ class LM:
         per = attn.cache_specs(cfg, batch, max_len, window=cfg.swa_window)
         return {"layers": _stack_specs(per, cfg.n_layers)}
 
+    def reset_slot(self, cache: dict, i: int) -> None:
+        """Put row ``i`` of every leaf of ``cache`` back to the value a
+        fresh cache (``cache_specs`` through ``init_tree``) holds, in
+        place: attention k, v zeros and pos -1; the mamba2 and RG-LRU conv
+        buffers and states zeros. Each leaf's batch axis is the one its
+        spec names ``kv_batch`` (after the stacked layer axis, if any)."""
+
+        def reset(leaf, spec):
+            if isinstance(leaf, dict):
+                for key, sub in leaf.items():
+                    reset(sub, spec[key])
+                return
+            fresh = {"zeros": 0, "ones": 1, "const": spec.scale}[spec.init]
+            leaf.select(spec.axes.index("kv_batch"), i).fill_(fresh)
+
+        reset(cache, self.cache_specs(1, 1))
+
+    def attention_layers(self) -> int:
+        """Attention layers a decode step runs, one decode-attention call
+        each: the ``pos`` leaves of the cache, a stacked leaf counting each
+        of its layers."""
+
+        def count(specs):
+            n = 0
+            for key, spec in specs.items():
+                if isinstance(spec, dict):
+                    n += count(spec)
+                elif key == "pos":
+                    n += spec.shape[0] if spec.axes[0] == "layers" else 1
+            return n
+
+        return count(self.cache_specs(1, 1))
+
     def decode_step(self, params, cache, tokens, positions, sharder):
         """One token for every row. tokens [B]; positions [B] int32.
         Returns (logits [B,V], cache), the cache updated in place."""

@@ -11,6 +11,9 @@ servers and joins the responses.
 Differences from the JAX engine, all in how the device is driven:
 
 * the step updates the KV cache in place (the JAX step donates it);
+* admitting a request into a slot resets that slot's row of the cache
+  (``LM.reset_slot``), so a recurrent state (mamba2, RG-LRU) starts
+  fresh; the JAX engine reuses the previous request's state there;
 * the per-step device wait is one synchronising copy of the argmax tokens
   to the host;
 * weights are cast to the compute dtype once, at construction;
@@ -193,6 +196,7 @@ class InferenceServer:
                         continue
                     req.started = time.monotonic()
                     active[i] = req
+                    self.model.reset_slot(cache, i)
                     pos[i] = 0
                     remaining[i] = req.max_new
                     pending_tokens[i] = list(req.tokens)

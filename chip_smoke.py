@@ -17,10 +17,16 @@ fatal on failure:
            shared memory and spills.
 2. kernels each kernel against its plain version on the card, fp32 with
            rtol=atol=1e-4 (the sums run in another order) and bf16 with
-           2e-2 (one bf16 rounding of the output; K1 with `k1_limit`, which
-           follows the outputs' scale): K1 at the decode cases,
-           K2 at the cases of the CPU tests and at the smollm-360m, hubert
-           and danube prefill shapes and at non-divisible lengths; K3 at
+           2e-2 (one bf16 rounding of the output; K1 with `k1_limit` and
+           K2 with `k2_limit`, which follow the outputs' scale): K1 at the
+           decode cases, K2 at the cases of the CPU tests and at the
+           smollm-360m, hubert, deepseek-moe-16b and danube prefill shapes
+           and at non-divisible lengths, each with the route
+           `flash_attention._route` took (bf16 with 16-byte strides: the
+           TMA/wgmma kernel; D = 20: mma.sync), and a planted fault (the
+           last K/V tile's keys cut, against the plain version on all
+           keys) at the hubert and smollm prefill shapes that must fail
+           `k2_limit`; K3 at
            the CPU tests' shapes, deepseek's decode and prefill shapes and
            ragged ones, contiguous and row-strided; K4 at the CPU tests'
            shapes, a ragged chunk and mamba2-2.7b's full width, against the
@@ -60,13 +66,16 @@ fatal on failure:
            logit); and the prefill logits of a 128-token prompt at every
            position against teacher-forced decode (K1) on the same weights.
 7. timing  K2, its plain version and scaled_dot_product_attention (the
-           yardstick, never called by the port) at the smollm-360m and
-           hubert prefill shapes and at a 32k-token row; the full-width
-           forward's wall time and tokens/s; a profile of one forward.
+           yardstick, never called by the port) at the smollm-360m, hubert
+           and deepseek-moe-16b prefill shapes and at a 32k-token row; the
+           full-width forward's wall time and tokens/s; a profile of one
+           forward, which must show all of K2's device time in the TMA
+           kernel (`FLASH_TMA`; so too in phases 8 and 10).
 8. moe     deepseek-moe-16b (28 layers, 64 experts top-6 + 2 shared),
            drawn in bf16: served as in 3 (K1 = 28 x steps, K3 = 3 x 27 x
            steps); its forward at B=4, S=2048 (28 K2 and 81 K3 launches),
-           every K3 call against the plain version, and the logits against
+           every K3 and K2 call against its plain version (K2 as in 6),
+           and the logits against
            the plain expert product with the plain run's routing pinned to
            K3's (2e-2 of the largest logit: unpinned, bf16 near ties flip
            the top-6); K3, plain and torch.bmm times at the decode and
@@ -158,6 +167,7 @@ DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention.py:67"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:88"
+FLASH_TMA = "flash_fwd_tma_wgmma"  # K2's kernel on every main path (its name)
 GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 GMM_REPLACES = "src/repro/kernels/moe_gmm.py:44"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -383,21 +393,55 @@ FLASH_CASES = [
     ("recurrentgemma narrow S150 G16 D256 w48", 1, 150, 150, 16, 1, 256, True, 48),
     ("recurrentgemma B4 S2048 G16 D256 w2048", 4, 2048, 2048, 16, 1, 256, True, 2048),
     ("recurrentgemma B1 S4096 G16 D256 w2048", 1, 4096, 4096, 16, 1, 256, True, 2048),
+    # the TMA kernel at hubert's D=80 and deepseek's D=128, narrow and
+    # ragged, and at smollm's G=3 long enough to wrap its K/V ring
+    ("hubert narrow S300 D80 bidir", 2, 300, 300, 4, 4, 80, False, None),
+    ("deepseek narrow S333 D128 causal", 2, 333, 333, 4, 4, 128, True, None),
+    ("smollm G3 D64 S700 causal, wraps the ring", 2, 700, 700, 6, 2, 64, True, None),
+    ("deepseek prefill B4 S2048 D128", 4, 2048, 2048, 16, 16, 128, True, None),
 ]
+# the bf16 cases at which phase 2 plants a fault that the check must catch
+FLASH_PLANTED_FAULT_CASES = ("hubert B4 S1024 bidir", "smollm prefill B4 S2048")
 
 
-def phase_flash_kernels(dev) -> float:
-    """K2 against its plain version; returns the largest abs error."""
+def k2_limit(want, spread):
+    """K2's bf16 limit, elementwise, on |kernel - plain| for the plain
+    version's output ``want`` and ``spread`` = sum_j p_j |v_j| (the plain
+    version on |v|), both the fp32 of bf16 tensors: one bf16 ulp of the
+    output, 2^-7 |want| (both round nearly the same fp32 value, which may
+    straddle a rounding boundary), plus 2^-8 sum_j p_j |v_j| for the
+    kernel's rounding of each probability to bf16 for the P V product
+    (a relative error of at most 2^-9 on each p_j) and what differs in fp32
+    (the sum order, exp2 with the scale folded in). It follows each
+    output's scale: at the smollm and hubert prefill shapes most outputs
+    are 0.03-0.06 and a fixed 2e-2 hides a dropped K/V tile in all but a
+    few thousand of millions of elements. Never looser than 2e-2 + 2e-2
+    relative."""
     import torch
 
-    from repro_torch.kernels import flash_attention, ops
+    return torch.minimum(2.0 ** -7 * want.abs() + 2.0 ** -8 * spread,
+                         TOL["bfloat16"] * (1 + want.abs()))
+
+
+K2_LIMIT_TEXT = "min(2^-7 |want| + 2^-8 sum_j p_j |v_j|, 2e-2 + 2e-2 |want|)"
+
+
+def phase_flash_kernels(dev):
+    """K2 against its plain version; returns the largest abs error and, for
+    each planted-fault case, how many elements of the faulty output exceed
+    the bf16 limit (fatal unless some do)."""
+    import torch
+
+    from repro_torch.kernels import build, flash_attention, ops
 
     gen = torch.Generator(device=dev).manual_seed(4321)
-    worst = 0.0
+    worst, planted = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).removeprefix("torch.")]
         for name, B, Sq, Sk, H, KV, D, causal, window in FLASH_CASES:
             q, k, v = flash_inputs(gen, dev, dtype, B, Sq, Sk, H, KV, D)
+            route = flash_attention._route(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2))
             layouts = {"model layout": lambda q, k, v: ops.flash_attention(
                 q, k, v, causal=causal, window=window)}
             if Sq <= 512:  # the kernel's own layout, contiguous
@@ -407,22 +451,53 @@ def phase_flash_kernels(dev) -> float:
                         v.transpose(1, 2).contiguous(), causal=causal,
                         window=window).transpose(1, 2)
             expect = plain_flash(q, k, v, causal=causal, window=window).float()
+            if dtype == torch.float32:
+                limit, limit_text = fixed_limit(tol)(expect), f"{tol:g} + {tol:g} relative"
+            else:
+                spread = plain_flash(q, k, v.abs(), causal=causal,
+                                     window=window).float()
+                limit, limit_text = k2_limit(expect, spread), K2_LIMIT_TEXT
+                del spread
             for lay, fn in layouts.items():
                 got = fn(q, k, v)
                 torch.cuda.synchronize()
                 got = got.float()
-                err = (got - expect).abs().max().item()
+                d = (got - expect).abs()
+                err = d.max().item()
                 worst = max(worst, err)
-                ok = got.shape == expect.shape and torch.allclose(
-                    got, expect, rtol=tol, atol=tol)
+                ok = got.shape == expect.shape and bool((d <= limit).all())
                 log(f"[kernels] flash_attention {name:34s} {lay:12s} "
-                    f"{str(dtype):14s} max_abs_err={err:.3e} tol={tol:g} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{str(dtype):14s} route {route:3s} max_abs_err={err:.3e}, "
+                    f"largest |err|/limit {(d / limit.clamp_min(1e-30)).max().item():.3f} "
+                    f"(limit {limit_text}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"flash_attention disagrees with its "
                                          f"plain version: {name}, {lay}, {dtype}")
-            del q, k, v, expect
-    return worst
+            if dtype == torch.bfloat16 and name in FLASH_PLANTED_FAULT_CASES:
+                # a planted fault the limit must resolve: the kernel on the
+                # keys with the last tile cut, which is what a kernel that
+                # dropped its last K/V tile would write, against the plain
+                # version on all keys
+                bk = build.cu_constant("flash_attention",
+                                       "TMA_BK" if D <= 128 else "TMA_BK_D256")
+                got = ops.flash_attention(q, k[:, :Sk - bk], v[:, :Sk - bk],
+                                          causal=causal, window=window).float()
+                d = (got - expect).abs()
+                over = int((d > limit).sum())
+                flat = int((d > fixed_limit(tol)(expect)).sum())
+                log(f"[kernels] flash_attention {name:34s} planted fault, the last "
+                    f"{bk} keys ({Sk - bk}..{Sk - 1}) dropped: max_abs_err="
+                    f"{d.max().item():.3e}, largest |err|/limit "
+                    f"{(d / limit.clamp_min(1e-30)).max().item():.3f}, {over} of "
+                    f"{d.numel()} elements over the limit ({flat} over a flat "
+                    f"{tol:g} + {tol:g} relative): "
+                    f"{'FAIL, as it must' if over else 'passes: NOT RESOLVED'}")
+                planted[name] = over
+                if not over:
+                    raise AssertionError(f"K2's bf16 limit does not resolve a "
+                                         f"dropped K/V tile at {name}")
+            del q, k, v, expect, limit
+    return worst, planted
 
 
 def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
@@ -1060,6 +1135,19 @@ def profile_forward(run, keys=("flash_fwd_",)):
     return device_totals(prof, *keys)
 
 
+def k2_in_tma(what, k2_ms, tma_ms) -> float:
+    """The share of K2's device time in a forward that ran in the TMA
+    kernel (FLASH_TMA); fails unless it is all of it."""
+    share = tma_ms / k2_ms if k2_ms > 0 else 0.0
+    ok = k2_ms > 0 and abs(k2_ms - tma_ms) <= 1e-9 * k2_ms
+    log(f"[profile] {what}: K2 (flash_fwd_*) {k2_ms:.3f} ms of device time, "
+        f"{tma_ms:.3f} ms of it in {FLASH_TMA} ({share * 100:.1f}%) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: K2 ran outside {FLASH_TMA}")
+    return share
+
+
 def device_totals(prof, *keys):
     """(device-busy ms, kernel launches, [ms of the kernels whose names hold
     each key])."""
@@ -1434,8 +1522,9 @@ def phase_moe(dev, flush, *, B=4, S=2048):
         f"{'ok' if ok else 'FAIL'}")
     del logits
 
-    # a. every K3 call of the forward against the plain version
-    with checked_gmm(TOL["bfloat16"]) as found:
+    # a. every K3 and K2 call of the forward against its plain version
+    with checked_gmm(TOL["bfloat16"]) as found, \
+            checked_prefill_attention(TOL["bfloat16"]) as found2:
         step(params, batch)
     gmm_err = max(e.item() for e, _ in found)
     good = len(found) == 3 * n_moe and max(x.item() for _, x in found) <= 0
@@ -1443,6 +1532,14 @@ def phase_moe(dev, flush, *, B=4, S=2048):
         f"version on the model's inputs: {len(found)} calls, max_abs_err="
         f"{gmm_err:.3e} (tol 2e-2 + 2e-2 relative) {'ok' if good else 'FAIL'}")
     ok &= good
+    attn_err = max(e.item() for e, _ in found2)
+    good = len(found2) == cfg.n_layers and max(x.item() for _, x in found2) <= 0
+    log(f"[moe] a. {cfg.name} bf16 K2 calls (D={cfg.hd}) of the forward against "
+        f"the plain version on the model's inputs: {len(found2)} calls, "
+        f"max_abs_err={attn_err:.3e} (tol 2e-2 + 2e-2 relative + 2^-8 sum_j "
+        f"p_j |v_j|) {'ok' if good else 'FAIL'}")
+    ok &= good
+    del found, found2
 
     # b. logits, K3 vs the plain expert product, routing pinned
     cond = conditioned(cfg, params)
@@ -1494,7 +1591,9 @@ def phase_moe(dev, flush, *, B=4, S=2048):
         f"({k1_ms / busy * 100:.1f}%)")
     run = {"model": model, "params": params, "batch": batch}
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_moe)
-    busy, launches, (k2_ms, k3_ms) = profile_forward(run, keys=("flash_fwd_", "gmm_"))
+    busy, launches, (k2_ms, k3_ms, tma_ms) = profile_forward(
+        run, keys=("flash_fwd_", "gmm_", FLASH_TMA))
+    k2_share = k2_in_tma(f"full-width {cfg.name} forward", k2_ms, tma_ms)
     log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
         f"K2 and K3 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
         f"their plain versions")
@@ -1506,7 +1605,9 @@ def phase_moe(dev, flush, *, B=4, S=2048):
     log(f"[moe] peak device memory of the {cfg.name} phase: "
         f"{gb(torch.cuda.max_memory_allocated())}")
     return {"serve_k1": serve["launches"], "serve_k3": serve["gmm_launches"],
-            "fwd_k2": k2, "fwd_k3": k3, "gmm_err": gmm_err, "rows": rows}
+            "fwd_k2": k2, "fwd_k3": k3, "gmm_err": gmm_err, "attn_err": attn_err,
+            "rows": rows,
+            "k2_share": k2_share}
 
 
 # --------------------------------------------------------------------------- #
@@ -1955,8 +2056,9 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
             f"{decode_row_text(r)}")
     run = {"model": model, "params": params, "batch": batch}
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_hybrid)
-    busy, launches, (k2_ms, k5_ms) = profile_forward(run, keys=("flash_fwd_",
-                                                                "rglru_fwd"))
+    busy, launches, (k2_ms, k5_ms, tma_ms) = profile_forward(
+        run, keys=("flash_fwd_", "rglru_fwd", FLASH_TMA))
+    k2_share = k2_in_tma(f"full-width {cfg.name} forward", k2_ms, tma_ms)
     log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
         f"K2 and K5 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
         f"their plain versions")
@@ -1977,7 +2079,8 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
     log(f"[hybrid] peak device memory of the {cfg.name} phase: "
         f"{gb(torch.cuda.max_memory_allocated())}")
     return {"fwd_k2": k2, "fwd_k5": k5, "dec_k1": k1, "serve_k1": serve["launches"],
-            "rglru_err": rglru_err, "attn_err": attn_err, "rows": rows}
+            "rglru_err": rglru_err, "attn_err": attn_err, "rows": rows,
+            "k2_share": k2_share}
 
 
 def card() -> str:
@@ -2016,7 +2119,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(dev)
-    flash_err = phase_flash_kernels(dev)
+    flash_err, flash_planted = phase_flash_kernels(dev)
     gmm_err = phase_gmm_kernels(dev)
     ssd_err = phase_ssd_kernels(dev)
     rglru_err = phase_rglru_kernels(dev)
@@ -2050,6 +2153,7 @@ def main() -> int:
         "hubert": time_flash_shape(dev, flush, 4, 1024, 16, 16, 80, False),
         "long": time_flash_shape(dev, flush, 1, 32768, H, KV, D, True,
                                  plain="chunked", iters=5, plain_iters=2),
+        "deepseek": time_flash_shape(dev, flush, 4, 2048, 16, 16, 128, True),
     }
     for tag, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None else
@@ -2060,10 +2164,14 @@ def main() -> int:
             f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16, "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
             f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
+    k2_share = {}
     for arch, run in prefill["runs"].items():
         fwd_ms, plain_fwd_ms = time_forward(dev, run)
         B, S = run["batch"]["positions"].shape
-        busy_ms, launches, (k2_ms,) = profile_forward(run)
+        busy_ms, launches, (k2_ms, tma_ms) = profile_forward(
+            run, keys=("flash_fwd_", FLASH_TMA))
+        k2_share[f"{run['cfg'].name} forward"] = k2_in_tma(
+            f"full-width {run['cfg'].name} forward", k2_ms, tma_ms)
         log(f"[timing] full-width {run['cfg'].name} forward B={B} S={S}: "
             f"{fwd_ms:.3f} ms with K2 ({B * S / fwd_ms * 1e3:.0f} tok/s), "
             f"{plain_fwd_ms:.3f} ms with the plain attention")
@@ -2092,6 +2200,8 @@ def main() -> int:
                 "recurrentgemma-9b decode": hybrid["dec_k1"]}
     k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"],
                 "recurrentgemma-9b forward": hybrid["fwd_k2"]}
+    k2_share.update({"deepseek-moe-16b forward": moe["k2_share"],
+                     "recurrentgemma-9b forward": hybrid["k2_share"]})
     k3_paths = {"deepseek-moe-16b serve": moe["serve_k3"],
                 "deepseek-moe-16b forward": moe["fwd_k3"]}
     kernels = [{
@@ -2110,7 +2220,8 @@ def main() -> int:
         "launches_by_path": k2_paths,
         "max_abs_err": flash_err, **{key: rows["smollm"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-        "hubert": rows["hubert"], "long": rows["long"],
+        "planted_fault_elements_over": flash_planted, "tma_share_by_path": k2_share,
+        "hubert": rows["hubert"], "long": rows["long"], "deepseek": rows["deepseek"],
         "recurrentgemma": hybrid["rows"]["flash"],
     }, {
         "name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -83,6 +84,13 @@ def load_all(names: list[str]) -> list[ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built if needed."""
     return load_all([name])[0]
+
+
+def cu_constant(name: str, constant: str) -> int:
+    """The value of ``constexpr int <constant> = <value>;`` in
+    ``csrc/<name>.cu``: a tile size the Python side shares with a kernel."""
+    src = (CSRC / f"{name}.cu").read_text()
+    return int(re.search(rf"constexpr int {constant} = (\d+);", src).group(1))
 
 
 def build_log(name: str) -> str:

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import re
 import threading
 from typing import Optional
 
@@ -29,16 +28,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
 
 
-def _cu_constant(name: str) -> int:
-    """A ``constexpr int`` of the kernel's source, which the split plan
-    shares with it."""
-    src = (build.CSRC / "decode_attention.cu").read_text()
-    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-
-
 # slots a tile (a split is whole tiles); query heads a CTA; the combine's
-# limit on splits
-_TILE, _GROUP, _MAX_SPLITS = map(_cu_constant, ("TILE", "GC", "MAX_SPLITS"))
+# limit on splits: constants of the kernel's source, which the split plan
+# shares with it
+_TILE, _GROUP, _MAX_SPLITS = (build.cu_constant("decode_attention", c)
+                              for c in ("TILE", "GC", "MAX_SPLITS"))
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -2,10 +2,11 @@
 (prefill), causal, sliding-window or bidirectional.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention_fwd``. For CUDA
-tensors ``flash_attention_fwd`` launches the hand-written Hopper kernel in
-``csrc/flash_attention.cu`` (see the note at its top for the design); for
-CPU tensors it runs the plain version, ``ref.flash_attention_ref``. There
-is no fallback: a CUDA call the kernel cannot take raises.
+tensors ``flash_attention_fwd`` launches one of the hand-written Hopper
+kernels in ``csrc/flash_attention.cu`` (see the note at its top for the
+designs), the one that ``_route`` picks; for CPU tensors it runs the plain
+version, ``ref.flash_attention_ref``. There is no fallback: a CUDA call
+that no kernel takes raises.
 
 ``flash_attention_fwd.launches`` counts kernel launches (never plain
 calls), so a run can show that its attention went through the kernel.
@@ -22,18 +23,23 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the head dims each path takes: the fp32 kernel stages rows in shared
-#: memory (any D up to 256); the bf16 kernel keeps a warp's output rows in
-#: registers and is instantiated for D <= 128 (padded to a multiple of 16)
-#: and for D = 256 (recurrentgemma-9b)
-_HEAD_DIMS = {torch.float32: (frozenset(range(1, 257)), "D <= 256"),
-              torch.bfloat16: (frozenset((*range(1, 129), 256)),
-                               "D <= 128 or D = 256")}
+#: the kernels of ``csrc/flash_attention.cu`` (its ``route`` argument)
+_ROUTES = {"f32": 0, "mma": 1, "tma": 2}
+#: the head dims each kernel takes. f32 (CUDA cores) stages rows in shared
+#: memory: any D up to 256. tma (bf16: TMA, wgmma) loads 64-column panels
+#: through tensor maps, whose strides are multiples of 16 bytes: D a
+#: multiple of 8 up to 128, or 256 (recurrentgemma-9b). mma (bf16,
+#: mma.sync) keeps a warp's output rows in registers, D padded to a
+#: multiple of 16 in shared memory: D <= 128 or D = 256, for the bf16 calls
+#: that TMA cannot take (strides or bases off 16 bytes, as at D = 20)
+_HEAD_DIMS = {"f32": frozenset(range(1, 257)),
+              "tma": frozenset((*range(8, 129, 8), 256)),
+              "mma": frozenset((*range(1, 129), 256))}
+_DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_I, _I, _P, _P, _P, _P,    # device, dtype, q k v out
+_ARGTYPES = [_I, _I, _P, _P, _P, _P,    # device, route, q k v out
              _I, _I, _I, _I, _I, _I,    # B H KV Sq Sk D
              _L, _L, _L, _L, _L, _L,    # q strides, k strides (b, s, h)
              _L, _L, _L, _L, _L, _L,    # v strides, out strides
@@ -61,7 +67,7 @@ def _check(q, k, v, window) -> None:
             or KV == 0 or H % KV or Sq == 0 or Sk == 0):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     devs = {t.device for t in (q, k, v)}
@@ -69,6 +75,37 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"tensors on several devices: {devs}")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _bsh(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides of t [B, heads, S, D]'s batch, sequence and head
+    dims; a dim of extent 1 gets the stride of one past the others (it is
+    never stepped, and a tensor map wants a multiple of 16 bytes)."""
+    dims = (0, 2, 1)
+    span = max(t.stride(d) * t.shape[d] for d in range(4))
+    return tuple(t.stride(d) if t.shape[d] > 1 else span for d in dims)
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes a CUDA call (a key of ``_ROUTES``): fp32 goes
+    to the CUDA cores; bf16 goes to TMA and wgmma when its head dim is
+    built there and every stride (of a dim longer than 1) and base is a
+    multiple of 16 bytes, and to mma.sync otherwise. Raises ValueError for
+    what neither takes."""
+    D = q.shape[3]
+    if q.dtype == torch.float32:
+        route = "f32"
+    else:
+        aligned = all(t.data_ptr() % 16 == 0
+                      and all(s > 0 and s * t.element_size() % 16 == 0
+                              for s in _bsh(t))
+                      for t in (q, k, v))
+        route = "tma" if aligned and D in _HEAD_DIMS["tma"] else "mma"
+    if D not in _HEAD_DIMS[route]:
+        raise ValueError(
+            f"head dim {D}: the {q.dtype} kernels take "
+            + ("D <= 256" if route == "f32" else "D <= 128 or D = 256"))
+    return route
 
 
 def flash_attention_fwd(
@@ -89,21 +126,15 @@ def flash_attention_fwd(
                          f"{q.device}")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    dims, which = _HEAD_DIMS[q.dtype]
-    if D not in dims:
-        raise ValueError(f"head dim {D}: the {q.dtype} kernel takes {which}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v need a contiguous last dim")
+    route = _route(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     fn, err_str = _kernel()
-
-    def bsh(t):  # element strides of batch, sequence and head
-        return t.stride(0), t.stride(2), t.stride(1)
-
     err = fn(
-        q.device.index, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+        q.device.index, _ROUTES[route], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, D,
-        *bsh(q), *bsh(k), *bsh(v), out.stride(0), out.stride(1), out.stride(2),
+        *_bsh(q), *_bsh(k), *_bsh(v), *_bsh(out.transpose(1, 2)),
         int(bool(causal)), -1 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -27,8 +27,15 @@ fatal on failure:
            last K/V tile's keys cut, against the plain version on all
            keys) at the hubert and smollm prefill shapes that must fail
            `k2_limit`; K3 at
-           the CPU tests' shapes, deepseek's decode and prefill shapes and
-           ragged ones, contiguous and row-strided; K4 at the CPU tests'
+           the CPU tests' shapes, deepseek's decode (4 and 16 rows) and
+           prefill shapes, gate/up and down, the TMA kernels' tile edges
+           and ragged ones, contiguous and row-strided, through every
+           route that can take each (`gmm_routes`: the one
+           `moe_gmm._route` picks, then the others forced), and a planted
+           fault (the last k-step taken out of the TMA kernels' output at
+           deepseek's prefill, gate/up in the tall tile and down in the
+           wide one, and at its 16-row decode) that the check must fail;
+           K4 at the CPU tests'
            shapes, a ragged chunk and mamba2-2.7b's full width, against the
            exact recurrence and the model's chunked algebra, both in fp32,
            elementwise (see `ssd_close`); K5 at the CPU tests' shapes,
@@ -73,14 +80,18 @@ fatal on failure:
            kernel (`FLASH_TMA`; so too in phases 8 and 10).
 8. moe     deepseek-moe-16b (28 layers, 64 experts top-6 + 2 shared),
            drawn in bf16: served as in 3 (K1 = 28 x steps, K3 = 3 x 27 x
-           steps); its forward at B=4, S=2048 (28 K2 and 81 K3 launches),
-           every K3 and K2 call against its plain version (K2 as in 6),
+           steps, all through the decode kernel); its forward at B=4,
+           S=2048 (28 K2 and 81 K3 launches, all K3 through the prefill
+           kernel), every K3 and K2 call against its plain version (K2 as
+           in 6),
            and the logits against
            the plain expert product with the plain run's routing pinned to
            K3's (2e-2 of the largest logit: unpinned, bf16 near ties flip
-           the top-6); K3, plain and torch.bmm times at the decode and
-           prefill shapes; decode step and forward times with the kernels
-           and with their plain versions, and profiles.
+           the top-6); K3, plain and torch.bmm times at the served decode
+           (16 rows) and prefill shapes, gate/up and down; decode step and
+           forward times with the kernels and with their plain versions,
+           and profiles, which must show all of K3's device time in the
+           route's kernel (`GMM_KERNELS`).
 9. ssm     mamba2-2.7b (64 layers), fp32 weights and a bf16 copy: its
            forward at B=4, S=2048 (64 K4 launches); every K4 call against
            the exact recurrence; on weights with Mamba-2's published dt and
@@ -170,6 +181,10 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention.py:88"
 FLASH_TMA = "flash_fwd_tma_wgmma"  # K2's kernel on every main path (its name)
 GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 GMM_REPLACES = "src/repro/kernels/moe_gmm.py:44"
+# K3's kernel by route (moe_gmm._route): the deepseek forward runs all of
+# its K3 calls in GMM_KERNELS["tma"], the served decode in "tma_decode"
+GMM_KERNELS = {"tma": "gmm_tma_wgmma", "tma_decode": "gmm_decode_tma_wgmma",
+               "mma": "gmm_bf16", "f32": "gmm_f32"}
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:75"
 RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
@@ -546,6 +561,8 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
         with checks as found:
             decode_attention.flash_decode.launches = 0
             moe_gmm.moe_gmm.launches = 0
+            moe_gmm.moe_gmm.route_launches = dict.fromkeys(
+                moe_gmm.moe_gmm.route_launches, 0)
             m0 = time.monotonic()
             t0 = time.perf_counter()
             for s in servers:
@@ -558,6 +575,8 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
             wall = time.perf_counter() - t0
             launches = decode_attention.flash_decode.launches
             gmm_launches = moe_gmm.moe_gmm.launches
+            gmm_routes = {r: n for r, n in moe_gmm.moe_gmm.route_launches.items()
+                          if n}
         for s in servers:
             s.stop()
         served = [s.served for s in servers]
@@ -580,7 +599,7 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
         f"{served}; engine steps {steps}; flash_decode launches {launches} (want "
         f"{n_attn} attention layers x {sum(steps)} = {want}); moe_gmm launches "
         f"{gmm_launches} (want 3 x {moe_layers} MoE layers x {sum(steps)} = "
-        f"{want_gmm})")
+        f"{want_gmm}; by route {gmm_routes})")
     if launches != want or gmm_launches != want_gmm:
         raise AssertionError(f"flash_decode launched {launches} times (want "
                              f"{want}), moe_gmm {gmm_launches} (want {want_gmm}): "
@@ -608,7 +627,8 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
         f"{clients * len(servers)} more); request latency s {lat}; "
         f"identical outputs on both servers (same seed) for {same}/{clients}")
     return {"launches": launches, "gmm_launches": gmm_launches,
-            "steps": sum(steps), "wall_s": wall, "tok_per_s": tokens / wall,
+            "gmm_routes": gmm_routes, "steps": sum(steps), "wall_s": wall,
+            "tok_per_s": tokens / wall,
             "params": servers[0].params}
 
 
@@ -1135,16 +1155,17 @@ def profile_forward(run, keys=("flash_fwd_",)):
     return device_totals(prof, *keys)
 
 
-def k2_in_tma(what, k2_ms, tma_ms) -> float:
-    """The share of K2's device time in a forward that ran in the TMA
-    kernel (FLASH_TMA); fails unless it is all of it."""
-    share = tma_ms / k2_ms if k2_ms > 0 else 0.0
-    ok = k2_ms > 0 and abs(k2_ms - tma_ms) <= 1e-9 * k2_ms
-    log(f"[profile] {what}: K2 (flash_fwd_*) {k2_ms:.3f} ms of device time, "
-        f"{tma_ms:.3f} ms of it in {FLASH_TMA} ({share * 100:.1f}%) "
+def all_in_kernel(what, kernel, total_ms, named_ms, name) -> float:
+    """The share of a kernel's device time in a path (``total_ms``, the
+    kernels of all its routes) that ran in the kernel called ``name``
+    (``named_ms``); fails unless it is all of it."""
+    share = named_ms / total_ms if total_ms > 0 else 0.0
+    ok = total_ms > 0 and abs(total_ms - named_ms) <= 1e-9 * total_ms
+    log(f"[profile] {what}: {kernel} {total_ms:.3f} ms of device time, "
+        f"{named_ms:.3f} ms of it in {name} ({share * 100:.1f}%) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{what}: K2 ran outside {FLASH_TMA}")
+        raise AssertionError(f"{what}: {kernel} ran outside {name}")
     return share
 
 
@@ -1210,18 +1231,48 @@ GMM_CASES = [
     ("deepseek smoke wd, B2 x C6", 8, 12, 32, 64),
     ("deepseek decode wg C4", 64, 4, 2048, 1408),
     ("deepseek decode wd C4", 64, 4, 1408, 2048),
+    # served decode: 4 slots of capacity 4
+    ("deepseek decode wg C16", 64, 16, 2048, 1408),
+    ("deepseek decode wd C16", 64, 16, 1408, 2048),
     ("deepseek prefill wg B4 x C241", 64, 964, 2048, 1408),
     ("deepseek prefill wd B4 x C241", 64, 964, 1408, 2048),
     ("ragged 3x5x37x19 (element loads)", 3, 5, 37, 19),
     ("ragged 3x40x40x24 (C tile edge)", 3, 40, 40, 24),
+    # the TMA kernels' edges: C past a 256-row tile, D past a k-step, F
+    # past a 128-column tile; the wide prefill tile's, C past 128 and F
+    # past 256; at 16 rows D past a 128-deep k-step, F past 64
+    ("prefill edges 3x300x72x136", 3, 300, 72, 136),
+    ("wide edges 3x130x72x504", 3, 130, 72, 504),
+    ("decode edges 2x16x200x72", 2, 16, 200, 72),
 ]
+# the bf16 cases and routes at which phase 2 plants a fault that the check
+# must catch: the last k-step's contribution taken out of the kernel's output
+# (prefill: gate/up in the tall tile, down in the wide one)
+GMM_PLANTED_FAULT_CASES = {"deepseek prefill wg B4 x C241": "tma",
+                           "deepseek prefill wd B4 x C241": "tma",
+                           "deepseek decode wg C16": "tma_decode"}
+
+
+def gmm_routes(x, w) -> list[str]:
+    """Every K3 route that can take x and w: the one ``moe_gmm._route``
+    picks first, then the other bf16 routes (mma.sync takes any bf16 call;
+    TMA needs 16-byte strides and bases, the decode kernel also at most
+    DECODE_ROWS rows)."""
+    from repro_torch.kernels import moe_gmm
+
+    main = moe_gmm._route(x, w)
+    if main in ("f32", "mma"):
+        return [main]
+    return [main] + [r for r in ("tma", "mma") if r != main]
 
 
 def phase_gmm_kernels(dev) -> float:
-    """K3 against its plain version; returns the largest abs error."""
+    """K3, every route that can take each case, against its plain version;
+    returns the largest abs error. A planted fault (one k-step's
+    contribution taken out of a kernel's output) must fail the check."""
     import torch
 
-    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import build, moe_gmm
 
     gen = torch.Generator(device=dev).manual_seed(2468)
     worst = 0.0
@@ -1233,20 +1284,48 @@ def phase_gmm_kernels(dev) -> float:
             layouts = {"[E,C,D]": buf[:, :C].contiguous(),
                        "row-strided view": buf[:, ::2]}
             for lay, x in layouts.items():
-                got = moe_gmm.moe_gmm(x, w)
-                torch.cuda.synchronize()
                 want = plain_gmm(x, w).float()
-                err = (got.float() - want).abs().max().item()
-                worst = max(worst, err)
-                ok = got.shape == want.shape and torch.allclose(
-                    got.float(), want, rtol=tol, atol=tol)
-                log(f"[kernels] moe_gmm {name:34s} {lay:16s} {str(dtype):14s} "
-                    f"max_abs_err={err:.3e} tol={tol:g} (+{tol:g} relative) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"moe_gmm disagrees with its plain "
-                                         f"version: {name}, {lay}, {dtype}")
-            del w, buf, layouts, got, want
+                for i, route in enumerate(gmm_routes(x, w)):
+                    got = (moe_gmm.moe_gmm(x, w) if i == 0
+                           else moe_gmm.launch(x, w, route))
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs().max().item()
+                    worst = max(worst, err)
+                    ok = got.shape == want.shape and torch.allclose(
+                        got.float(), want, rtol=tol, atol=tol)
+                    log(f"[kernels] moe_gmm {name:34s} {lay:16s} {str(dtype):14s} "
+                        f"route {route:10s}{' (its own)' if i == 0 else ' (forced)':10s}"
+                        f" max_abs_err={err:.3e} tol={tol:g} (+{tol:g} relative) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"moe_gmm disagrees with its plain "
+                                             f"version: {name}, {lay}, {dtype}, "
+                                             f"route {route}")
+                    route_planted = GMM_PLANTED_FAULT_CASES.get(name)
+                    if (dtype == torch.bfloat16 and lay == "[E,C,D]"
+                            and route == route_planted):
+                        # a planted fault the check must catch: the kernel's
+                        # output less its last k-step's contribution, which
+                        # is what a kernel that dropped that k-step would
+                        # write
+                        bk = build.cu_constant(
+                            "moe_gmm", "TMA_BK" if route == "tma" else "DEC_BK")
+                        k0 = (D - 1) // bk * bk
+                        part = torch.bmm(x[:, :, k0:].float(), w[:, k0:].float())
+                        bad = (got.float() - part).to(dtype).float()
+                        caught = not torch.allclose(bad, want, rtol=tol, atol=tol)
+                        over = int(((bad - want).abs() > tol + tol * want.abs()).sum())
+                        log(f"[kernels] moe_gmm {name:34s} planted fault, route "
+                            f"{route}: the last k-step (d {k0}..{D - 1}) taken out: "
+                            f"max_abs_err={(bad - want).abs().max().item():.3e}, "
+                            f"{over} of {want.numel()} elements over the check: "
+                            f"{'FAIL, as it must' if caught else 'passes: NOT CAUGHT'}")
+                        if not caught:
+                            raise AssertionError(f"K3's check does not catch a "
+                                                 f"dropped k-step at {name}")
+                        del part, bad
+                    del got
+            del w, buf, layouts, want
     return worst
 
 
@@ -1356,12 +1435,13 @@ def time_gmm_shape(dev, flush, E, C, D, F):
     times at one shape in bf16."""
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import moe_gmm, ops
 
     gen = torch.Generator(device=dev).manual_seed(8)
     x = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
     w = (torch.randn(E, D, F, generator=gen, device=dev) / D ** 0.5).bfloat16()
-    row = {"ms": time_ms(lambda: ops.moe_gmm(x, w), flush),
+    row = {"route": moe_gmm._route(x, w),
+           "ms": time_ms(lambda: ops.moe_gmm(x, w), flush),
            "plain_ms": time_ms(lambda: plain_gmm(x, w), flush, 10, warmup=2),
            "library_ms": time_ms(lambda: torch.bmm(x, w), flush)}
     row["bound_ms"], row["bound_by"] = gmm_bound(E, C, D, F)
@@ -1501,6 +1581,11 @@ def phase_moe(dev, flush, *, B=4, S=2048):
 
     serve = phase_serve(dev, cfg, params=params)
     serve.pop("params")
+    ok = serve["gmm_routes"] == {"tma_decode": serve["gmm_launches"]}
+    log(f"[moe] served {cfg.name}: K3 launches by route {serve['gmm_routes']} "
+        f"(want all {serve['gmm_launches']} in tma_decode) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the served decode's K3 calls left the decode kernel")
 
     # the forward through make_prefill_step
     batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1), dev,
@@ -1509,17 +1594,19 @@ def phase_moe(dev, flush, *, B=4, S=2048):
     torch.cuda.synchronize()
     flash_attention.flash_attention_fwd.launches = 0
     moe_gmm.moe_gmm.launches = 0
+    moe_gmm.moe_gmm.route_launches = dict.fromkeys(moe_gmm.moe_gmm.route_launches, 0)
     logits = step(params, batch)
     torch.cuda.synchronize()
     k2 = flash_attention.flash_attention_fwd.launches
     k3 = moe_gmm.moe_gmm.launches
+    k3_routes = {r: n for r, n in moe_gmm.moe_gmm.route_launches.items() if n}
     finite = bool(torch.isfinite(logits).all())
     ok = (tuple(logits.shape) == (B, S, cfg.vocab) and finite
-          and k2 == cfg.n_layers and k3 == 3 * n_moe)
+          and k2 == cfg.n_layers and k3 == 3 * n_moe and k3_routes == {"tma": k3})
     log(f"[moe] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}: logits "
         f"{tuple(logits.shape)}, finite {finite}; flash_attention launches {k2} "
-        f"(want {cfg.n_layers}), moe_gmm launches {k3} (want 3 x {n_moe}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"(want {cfg.n_layers}), moe_gmm launches {k3} (want 3 x {n_moe}, all "
+        f"in route tma: {k3_routes}) {'ok' if ok else 'FAIL'}")
     del logits
 
     # a. every K3 and K2 call of the forward against its plain version
@@ -1565,13 +1652,16 @@ def phase_moe(dev, flush, *, B=4, S=2048):
     if not ok:
         raise AssertionError("the MoE path failed its checks")
 
-    # timings
+    # timings at the main paths' shapes: gate/up and down, prefill (B=4
+    # rows of capacity 241) and served decode (4 slots of capacity 4)
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
-    rows = {"decode": time_gmm_shape(dev, flush, E, 4, D, Fd),
-            "prefill": time_gmm_shape(dev, flush, E, B * 241, D, Fd)}
+    rows = {"decode": time_gmm_shape(dev, flush, E, 16, D, Fd),
+            "decode_down": time_gmm_shape(dev, flush, E, 16, Fd, D),
+            "prefill": time_gmm_shape(dev, flush, E, B * 241, D, Fd),
+            "prefill_down": time_gmm_shape(dev, flush, E, B * 241, Fd, D)}
     for tag, row in rows.items():
-        log(f"[timing] moe_gmm {tag} shape ({row['shape']}): kernel_ms="
-            f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms="
+        log(f"[timing] moe_gmm {tag} shape ({row['shape']}): route {row['route']} "
+            f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms="
             f"{row['library_ms']:.6f} (torch.bmm, yardstick) bound_ms="
             f"{row['bound_ms']:.6f} ({row['bound_by']}); "
             f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
@@ -1581,8 +1671,10 @@ def phase_moe(dev, flush, *, B=4, S=2048):
         f"K1 and K3, {plain_step_ms:.3f} ms with their plain versions; engine "
         f"{serve['tok_per_s']:.1f} generated tok/s over {serve['steps']} steps in "
         f"{serve['wall_s']:.3f} s")
-    busy, launches, (k1_ms, k3_ms) = profile_steps(
-        dev, cfg, params, keys=("flash_decode_", "gmm_"))
+    busy, launches, (k1_ms, k3_ms, dec_ms) = profile_steps(
+        dev, cfg, params, keys=("flash_decode_", "gmm_", GMM_KERNELS["tma_decode"]))
+    all_in_kernel(f"full-width {cfg.name} decode step", "K3 (gmm_*)", k3_ms, dec_ms,
+                  GMM_KERNELS["tma_decode"])
     log(f"[profile] full-width {cfg.name} decode step B=4 (torch.profiler, 3 "
         f"steps): device busy {busy:.3f} ms a step ({busy / step_ms * 100:.1f}% of "
         f"the {step_ms:.3f} ms step, idle {100 - busy / step_ms * 100:.1f}%); "
@@ -1591,9 +1683,12 @@ def phase_moe(dev, flush, *, B=4, S=2048):
         f"({k1_ms / busy * 100:.1f}%)")
     run = {"model": model, "params": params, "batch": batch}
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_moe)
-    busy, launches, (k2_ms, k3_ms, tma_ms) = profile_forward(
-        run, keys=("flash_fwd_", "gmm_", FLASH_TMA))
-    k2_share = k2_in_tma(f"full-width {cfg.name} forward", k2_ms, tma_ms)
+    busy, launches, (k2_ms, k3_ms, tma_ms, gmm_tma_ms) = profile_forward(
+        run, keys=("flash_fwd_", "gmm_", FLASH_TMA, GMM_KERNELS["tma"]))
+    k2_share = all_in_kernel(f"full-width {cfg.name} forward", "K2 (flash_fwd_*)",
+                             k2_ms, tma_ms, FLASH_TMA)
+    all_in_kernel(f"full-width {cfg.name} forward", "K3 (gmm_*)", k3_ms, gmm_tma_ms,
+                  GMM_KERNELS["tma"])
     log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
         f"K2 and K3 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
         f"their plain versions")
@@ -1605,6 +1700,7 @@ def phase_moe(dev, flush, *, B=4, S=2048):
     log(f"[moe] peak device memory of the {cfg.name} phase: "
         f"{gb(torch.cuda.max_memory_allocated())}")
     return {"serve_k1": serve["launches"], "serve_k3": serve["gmm_launches"],
+            "serve_k3_routes": serve["gmm_routes"], "fwd_k3_routes": k3_routes,
             "fwd_k2": k2, "fwd_k3": k3, "gmm_err": gmm_err, "attn_err": attn_err,
             "rows": rows,
             "k2_share": k2_share}
@@ -2058,7 +2154,8 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_hybrid)
     busy, launches, (k2_ms, k5_ms, tma_ms) = profile_forward(
         run, keys=("flash_fwd_", "rglru_fwd", FLASH_TMA))
-    k2_share = k2_in_tma(f"full-width {cfg.name} forward", k2_ms, tma_ms)
+    k2_share = all_in_kernel(f"full-width {cfg.name} forward", "K2 (flash_fwd_*)",
+                             k2_ms, tma_ms, FLASH_TMA)
     log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
         f"K2 and K5 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
         f"their plain versions")
@@ -2170,8 +2267,9 @@ def main() -> int:
         B, S = run["batch"]["positions"].shape
         busy_ms, launches, (k2_ms, tma_ms) = profile_forward(
             run, keys=("flash_fwd_", FLASH_TMA))
-        k2_share[f"{run['cfg'].name} forward"] = k2_in_tma(
-            f"full-width {run['cfg'].name} forward", k2_ms, tma_ms)
+        k2_share[f"{run['cfg'].name} forward"] = all_in_kernel(
+            f"full-width {run['cfg'].name} forward", "K2 (flash_fwd_*)", k2_ms,
+            tma_ms, FLASH_TMA)
         log(f"[timing] full-width {run['cfg'].name} forward B={B} S={S}: "
             f"{fwd_ms:.3f} ms with K2 ({B * S / fwd_ms * 1e3:.0f} tok/s), "
             f"{plain_fwd_ms:.3f} ms with the plain attention")
@@ -2227,9 +2325,14 @@ def main() -> int:
         "name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,
         "replaces": GMM_REPLACES, "launches": sum(k3_paths.values()),
         "launches_by_path": k3_paths, "max_abs_err": max(gmm_err, moe["gmm_err"]),
+        "routes": GMM_KERNELS,
+        "route_launches_by_path": {"deepseek-moe-16b serve": moe["serve_k3_routes"],
+                                   "deepseek-moe-16b forward": moe["fwd_k3_routes"]},
         **{key: moe["rows"]["decode"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-        "prefill": moe["rows"]["prefill"],
+        "decode_route": moe["rows"]["decode"]["route"],
+        "decode_down": moe["rows"]["decode_down"], "prefill": moe["rows"]["prefill"],
+        "prefill_down": moe["rows"]["prefill_down"],
     }, {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "launches": ssm["fwd_k4"],

@@ -15,6 +15,10 @@ from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 DTYPES = ("float32", "bfloat16")
 TOL32 = 2e-5  # bf16: _bf16_limit
 

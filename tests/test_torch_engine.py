@@ -28,6 +28,10 @@ from repro_torch.core.topology import Topology
 from repro_torch.models.base import params_from_numpy
 from repro_torch.serve.engine import Gateway, InferenceServer, Request
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

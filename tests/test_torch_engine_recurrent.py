@@ -28,6 +28,10 @@ from repro_torch.models.base import params_from_numpy
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import InferenceServer, Request
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 MAX_LEN, MAX_NEW = 16, 5
 
 

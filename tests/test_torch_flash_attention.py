@@ -15,6 +15,10 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 # tests/test_kernels.py's tolerances: fp32 2e-5, bf16 2e-2 (one bf16
 # rounding of outputs of magnitude ~1)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -8,6 +8,11 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"

@@ -29,6 +29,10 @@ from repro_torch.models.registry import build_model as t_build_model
 from repro_torch.runtime.sharding import Sharder as TSharder
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 MODES = {"causal": ("causal", None), "windowed": ("causal", 12),

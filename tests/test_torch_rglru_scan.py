@@ -15,6 +15,10 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.models.rglru import associative_scan
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 # tests/test_kernels.py's tolerances: fp32 2e-5 (the same fp32 steps in
 # another order of operations), bf16 a and b 2e-2 (one bf16 rounding of y)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

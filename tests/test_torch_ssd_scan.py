@@ -15,6 +15,10 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models.mamba2 import ssd_chunked
 
+# two intra-op threads at most: the timing-bound reference tests in the
+# other pytest workers share this host's cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 # tests/test_kernels.py's tolerances: the SSD scan 1e-4 in fp32; bf16 x, B
 # and C (dt and A stay fp32, as in the model) 2e-2
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}

@@ -36,9 +36,15 @@ fatal on failure:
            deepseek's prefill, gate/up in the tall tile and down in the
            wide one, and at its 16-row decode) that the check must fail;
            K4 at the CPU tests'
-           shapes, a ragged chunk and mamba2-2.7b's full width, against the
-           exact recurrence and the model's chunked algebra, both in fp32,
-           elementwise (see `ssd_close`); K5 at the CPU tests' shapes,
+           shapes, a ragged chunk, route tc's edges (H off its head groups,
+           Q off its query tile, one chunk) and mamba2-2.7b's full width,
+           through every route that can take each (`ssd_routes`: the one
+           `ssd_scan._route` picks, then route fwd forced where it picked
+           tc), against the exact recurrence and the model's chunked
+           algebra, both in fp32, elementwise (see `ssd_close`), and a
+           planted fault (the last chunk's local state dropped from route
+           tc's final state at mamba2-2.7b's shape) that the check must
+           fail; K5 at the CPU tests' shapes,
            ragged S and W, and recurrentgemma-9b's full width (fp32);
            K2 and K1 also at recurrentgemma-9b's local attention (MQA,
            G=16, D=256, window 2048; B=1 S=4096 so that the window masks;
@@ -93,15 +99,17 @@ fatal on failure:
            and profiles, which must show all of K3's device time in the
            route's kernel (`GMM_KERNELS`).
 9. ssm     mamba2-2.7b (64 layers), fp32 weights and a bf16 copy: its
-           forward at B=4, S=2048 (64 K4 launches); every K4 call against
-           the exact recurrence; on weights with Mamba-2's published dt and
+           forward at B=4, S=2048 (64 K4 launches, all on route tc); every
+           K4 call against the exact recurrence; on weights with Mamba-2's published dt and
            A init (`mamba2.published_dt_A`: the specs' init is chaotic at
            this depth, ROADMAP Queue 3), the fp32 forward (K4) against
            teacher-forced decode at every position of a 768-token prompt
            (three chunks, so the state carried between chunks reaches the
            logits) within 2e-2 of the largest logit, and every K4 call of
-           the bf16 forward against the recurrence; K4 times and bound,
-           forward times with K4 and the chunked scan, a profile, and the
+           the bf16 forward against the recurrence; K4 times on route tc
+           and on route fwd forced, beside the bound of each, forward times
+           with K4 and the chunked scan, a profile, which must show all of
+           K4's device time in route tc's kernels (`SSD_KERNELS`), and the
            decode step's time. Served as in 3 (no K1: 0 launches), each
            admitted request from a fresh state (LM.reset_slot).
 10. hybrid recurrentgemma-9b (38 layers: 12 superblocks of rec, rec,
@@ -187,6 +195,11 @@ GMM_KERNELS = {"tma": "gmm_tma_wgmma", "tma_decode": "gmm_decode_tma_wgmma",
                "mma": "gmm_bf16", "f32": "gmm_f32"}
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:75"
+# K4's kernels by route (ssd_scan._route), as name prefixes: route tc is
+# three kernels (ssd_tc_state, ssd_tc_pass, ssd_tc_out), and the mamba2
+# forward runs all of its K4 calls there; "ssd_" names every K4 kernel
+SSD_KERNELS = {"tc": "ssd_tc_", "fwd": "ssd_fwd"}
+SSD_ANY = "ssd_"
 RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 RGLRU_REPLACES = "src/repro/kernels/rglru_scan.py:52"
 KERNELS = ("decode_attention", "flash_attention", "moe_gmm", "ssd_scan",
@@ -1338,8 +1351,15 @@ SSD_CASES = [
     ("mamba2 smoke B2 S48 H8 P16 N16 Q16", 2, 48, 8, 16, 16, 16),
     ("ragged Q20 B1 S60 H3 P8 N12", 1, 60, 3, 8, 12, 20),
     ("ragged Q100 B2 S200 H4 P64 N128", 2, 200, 4, 64, 128, 100),
+    # route tc's edges: H off its head groups (16 an output CTA, 10 a state
+    # CTA), one chunk (no state carried); Q100 above is off its 64-row tile
+    ("H21 off the head groups B2 S512 H21 P64 N128 Q256", 2, 512, 21, 64, 128, 256),
+    ("nc=1 B2 S256 H8 P64 N128 Q256", 2, 256, 8, 64, 128, 256),
     ("mamba2-2.7b B4 S2048 H80 P64 N128 Q256", 4, 2048, 80, 64, 128, 256),
 ]
+# the bf16 case at which phase 2 plants a fault on route tc that the check
+# must catch: the last chunk's local state dropped from the final state
+SSD_PLANTED_FAULT_CASE = "mamba2-2.7b B4 S2048 H80 P64 N128 Q256"
 
 
 def ssd_inputs(gen, dev, dtype, B, S, H, P, N):
@@ -1388,10 +1408,34 @@ def fp32_ssd(plain, x, dt, A, Bm, Cm, *args):
     return plain(x.float(), dt, A, Bm.float(), Cm.float(), *args)
 
 
+def ssd_routes(x, Bm, Cm, chunk) -> list[str]:
+    """Every K4 route that can take a call: the one ``ssd_scan._route``
+    picks first, then "fwd" forced where it picked "tc" ("fwd" takes any
+    call, "tc" only bf16 at its alignment and limits)."""
+    from repro_torch.kernels import ssd_scan
+
+    main = ssd_scan._route(x, Bm, Cm, chunk)
+    return [main] + (["fwd"] if main == "tc" else [])
+
+
+def last_chunk_state(x, dt, A, Bm, Q):
+    """The last chunk's local state, sum_j exp(clip(cum_Q - cum_j)) dt_j x_j
+    B_j^T [B,H,P,N], in fp32: what a state pass that dropped it would leave
+    out of the final state."""
+    import torch
+
+    xq, dq, bq = x[:, -Q:].float(), dt[:, -Q:], Bm[:, -Q:].float()
+    cum = torch.cumsum(dq * A, dim=1)
+    w = torch.exp(torch.clamp(cum[:, -1:] - cum, -60.0, 0.0)) * dq
+    return torch.einsum("bjh,bjn,bjhp->bhpn", w, bq, xq)
+
+
 def phase_ssd_kernels(dev) -> float:
-    """K4 against its plain version (the exact recurrence) and the model's
-    chunked algebra, both run in fp32 (``ssd_close``); returns the largest
-    abs error."""
+    """K4, every route that can take each case, against its plain version
+    (the exact recurrence) and the model's chunked algebra, both run in fp32
+    (``ssd_close``); returns the largest abs error. A planted fault on route
+    tc (the last chunk's local state dropped from the final state) must fail
+    the check."""
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
@@ -1402,24 +1446,47 @@ def phase_ssd_kernels(dev) -> float:
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, S, H, P, N, Q in SSD_CASES:
             x, dt, A, Bm, Cm = ssd_inputs(gen, dev, dtype, B, S, H, P, N)
-            y, h = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
-            torch.cuda.synchronize()
-            for what, (wy, wh) in (
-                    ("ssd_ref", fp32_ssd(ref.ssd_ref, x, dt, A, Bm, Cm)),
-                    ("ssd_chunked", fp32_ssd(ssd_chunked, x, dt, A, Bm, Cm, Q))):
-                ey, ry = ssd_close(y, wy)
-                eh, rh = ssd_close(h, wh)
-                worst = max(worst, ey, eh)
-                ok = y.shape == wy.shape and h.shape == wh.shape and max(ry, rh) <= 1
-                log(f"[kernels] ssd_scan {name:40s} {str(dtype):14s} vs {what:11s} "
-                    f"(fp32) y max_abs_err={ey:.3e} at {ry:.3f} of its tolerance, "
-                    f"h max_abs_err={eh:.3e} at {rh:.3f} (|y|max "
-                    f"{wy.abs().max().item():.3g}, |h|max {wh.abs().max().item():.3g}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"ssd_scan disagrees with {what}: {name}, "
-                                         f"{dtype}")
-            del x, dt, A, Bm, Cm, y, h, wy, wh
+            wants = (("ssd_ref", fp32_ssd(ref.ssd_ref, x, dt, A, Bm, Cm)),
+                     ("ssd_chunked", fp32_ssd(ssd_chunked, x, dt, A, Bm, Cm, Q)))
+            for i, route in enumerate(ssd_routes(x, Bm, Cm, Q)):
+                y, h = (ssd_scan.ssd_scan(x, dt, A, Bm, Cm, chunk=Q) if i == 0
+                        else ssd_scan.launch(x, dt, A, Bm, Cm, Q, route))
+                torch.cuda.synchronize()
+                for what, (wy, wh) in wants:
+                    ey, ry = ssd_close(y, wy)
+                    eh, rh = ssd_close(h, wh)
+                    worst = max(worst, ey, eh)
+                    ok = y.shape == wy.shape and h.shape == wh.shape and max(ry, rh) <= 1
+                    log(f"[kernels] ssd_scan {name:50s} {str(dtype):14s} route {route:3s}"
+                        f"{' (its own)' if i == 0 else ' (forced)':10s} vs {what:11s} "
+                        f"(fp32) y max_abs_err={ey:.3e} at {ry:.3f} of its tolerance, "
+                        f"h max_abs_err={eh:.3e} at {rh:.3f} (|y|max "
+                        f"{wy.abs().max().item():.3g}, |h|max {wh.abs().max().item():.3g}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"ssd_scan disagrees with {what}: {name}, "
+                                             f"{dtype}, route {route}")
+                if (dtype == torch.bfloat16 and route == "tc"
+                        and name == SSD_PLANTED_FAULT_CASE):
+                    # a planted fault the check must catch: the final state
+                    # less the last chunk's local state, which is what a
+                    # state pass that dropped it would write
+                    bad = h - last_chunk_state(x, dt, A, Bm, Q)
+                    for what, (wy, wh) in wants:
+                        eh, rh = ssd_close(bad, wh)
+                        tol = 1e-4 * wh.abs() + 1e-4 * max(1.0, wh.abs().max().item())
+                        over = int(((bad - wh).abs() > tol).sum())
+                        log(f"[kernels] ssd_scan {name:50s} planted fault, route tc: the "
+                            f"last chunk's local state dropped, vs {what}: h max_abs_err="
+                            f"{eh:.3e} at {rh:.3f} of its tolerance, {over} of "
+                            f"{wh.numel()} states over it: "
+                            f"{'FAIL, as it must' if rh > 1 else 'passes: NOT CAUGHT'}")
+                        if rh <= 1:
+                            raise AssertionError(f"K4's check does not catch a dropped "
+                                                 f"chunk state at {name}")
+                    del bad
+                del y, h
+            del x, dt, A, Bm, Cm, wants
     return worst
 
 
@@ -1449,27 +1516,30 @@ def time_gmm_shape(dev, flush, E, C, D, F):
     return row
 
 
-def ssd_bound(B, S, H, P, N, Q, es):
+def ssd_bound(B, S, H, P, N, Q, es, rate="bfloat16"):
     """The least time of the scan: x, dt, A, B, C read and y, h written once;
-    the chunk algebra's fp32 operations with the causal halves skipped and
-    C B^T counted once a chunk (it does not depend on the head)."""
+    the chunk algebra's operations with the causal halves skipped and C B^T
+    counted once a chunk (it does not depend on the head), at the peak rate
+    of ``rate``: "bfloat16" (tensor cores) for route tc, "float32" (CUDA
+    cores) for route fwd."""
     nc = S // Q
     moved = (2 * B * S * H * P * es + B * S * H * 4 + H * 4 + 2 * B * S * N * es
              + B * H * P * N * 4)
     tri = Q * (Q + 1) // 2
     flops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS[rate] * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), flops, moved
 
 
 def time_ssd_shape(dev, flush, B, S, H, P, N, Q):
-    """K4, its plain version (the exact recurrence) and the model's chunked
-    algebra at one shape: bf16 x, B, C and fp32 dt, A, model layout."""
+    """K4 on the route it takes (tc) and on route fwd forced, its plain
+    version (the exact recurrence) and the model's chunked algebra at one
+    shape: bf16 x, B, C and fp32 dt, A, model layout."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, ssd_scan
 
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(B, S, H, P, generator=gen, device=dev).bfloat16()
@@ -1477,17 +1547,23 @@ def time_ssd_shape(dev, flush, B, S, H, P, N, Q):
     A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.3)
     Bm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5).bfloat16()
     Cm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5).bfloat16()
-    row = {"ms": time_ms(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q), flush, 20),
+    row = {"route": ssd_scan._route(x, Bm, Cm, Q),
+           "ms": time_ms(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q), flush, 20),
+           "fwd_ms": time_ms(lambda: ssd_scan.launch(x, dt, A, Bm, Cm, Q, "fwd"),
+                             flush, 20),
            "plain_ms": time_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm), flush, 2, warmup=1),
            "chunked_ms": time_ms(lambda: plain_ssd(x, dt, A, Bm, Cm, Q), flush, 5,
                                  warmup=1),
            "library_ms": None}
     (row["bound_ms"], row["bound_by"]), flops, moved = ssd_bound(B, S, H, P, N, Q, 2)
+    (row["bound_ms_fwd"], row["bound_by_fwd"]), _, _ = ssd_bound(B, S, H, P, N, Q, 2,
+                                                                 "float32")
     row["shape"] = (f"B={B} S={S} H={H} P={P} N={N} Q={Q}, bf16 x/B/C, fp32 dt/A, "
                     f"model layout; plain = ref.ssd_ref (the O(S) recurrence)")
-    row["bound_note"] = (f"{flops / 1e9:.1f} GFLOP at the {PEAK_FLOPS['float32'] / 1e12:.0f}"
-                         f" TFLOP/s fp32 rate, {moved / 1e6:.1f} MB at "
-                         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    row["bound_note"] = (f"{moved / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+                         f"{flops / 1e9:.2f} GFLOP at {PEAK_FLOPS['bfloat16'] / 1e12:.0f} "
+                         f"TFLOP/s bf16 (route tc) or {PEAK_FLOPS['float32'] / 1e12:.0f} "
+                         f"fp32 (route fwd)")
     return row
 
 
@@ -1777,14 +1853,18 @@ def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
     step = make_prefill_step(model, sharder)
     torch.cuda.synchronize()
     ssd_scan.ssd_scan.launches = 0
+    ssd_scan.ssd_scan.route_launches = dict.fromkeys(ssd_scan.ROUTES, 0)
     logits = step(params, batch)
     torch.cuda.synchronize()
     k4 = ssd_scan.ssd_scan.launches
+    k4_routes = dict(ssd_scan.ssd_scan.route_launches)
     finite = bool(torch.isfinite(logits).all())
-    ok = tuple(logits.shape) == (B, S, cfg.vocab) and finite and k4 == cfg.n_layers
+    ok = (tuple(logits.shape) == (B, S, cfg.vocab) and finite and k4 == cfg.n_layers
+          and k4_routes["tc"] == cfg.n_layers)
     log(f"[ssm] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}: logits "
         f"{tuple(logits.shape)}, finite {finite}; ssd_scan launches {k4} (want "
-        f"n_layers {cfg.n_layers}) {'ok' if ok else 'FAIL'}")
+        f"n_layers {cfg.n_layers}), by route {k4_routes} (want all on tc) "
+        f"{'ok' if ok else 'FAIL'}")
     del logits
 
     # a. every K4 call of the forward against the exact recurrence
@@ -1833,14 +1913,19 @@ def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
 
     row = time_ssd_shape(dev, flush, B, S, H, cfg.ssm_head_dim, cfg.ssm_state,
                          cfg.ssm_chunk)
-    log(f"[timing] ssd_scan ({row['shape']}): kernel_ms={row['ms']:.6f} plain_ms="
-        f"{row['plain_ms']:.6f} chunked_ms={row['chunked_ms']:.6f} (the model's "
-        f"chunked algebra) library_ms=n/a (no single PyTorch call) bound_ms="
-        f"{row['bound_ms']:.6f} ({row['bound_by']}: {row['bound_note']}); "
-        f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
+    log(f"[timing] ssd_scan ({row['shape']}): kernel_ms={row['ms']:.6f} (route "
+        f"{row['route']}) fwd_ms={row['fwd_ms']:.6f} (route fwd forced, "
+        f"{row['fwd_ms'] / row['ms']:.2f}x) plain_ms={row['plain_ms']:.6f} chunked_ms="
+        f"{row['chunked_ms']:.6f} (the model's chunked algebra) library_ms=n/a (no "
+        f"single PyTorch call) bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) for "
+        f"route tc, {row['bound_ms_fwd']:.6f} ({row['bound_by_fwd']}) for route fwd "
+        f"({row['bound_note']}); route tc at {row['bound_ms'] / row['ms'] * 100:.1f}% "
+        f"of its bound, route fwd at {row['bound_ms_fwd'] / row['fwd_ms'] * 100:.1f}%")
     run = {"model": model, "params": params, "batch": batch}
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_ssm)
-    busy, launches, (k4_ms,) = profile_forward(run, keys=("ssd_fwd",))
+    busy, launches, (k4_ms, tc_ms) = profile_forward(run, keys=(SSD_ANY, SSD_KERNELS["tc"]))
+    k4_share = all_in_kernel(f"full-width {cfg.name} forward", f"K4 ({SSD_ANY}*)", k4_ms,
+                             tc_ms, f"route tc ({SSD_KERNELS['tc']}*)")
     log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
         f"K4 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with the "
         f"chunked scan")
@@ -1860,7 +1945,8 @@ def phase_ssm(dev, flush, *, B=4, S=2048, prompt=768):
         f"{gb(torch.cuda.max_memory_allocated())}")
     if not ok:
         raise AssertionError("the SSM path failed its checks")
-    return {"fwd_k4": k4, "ssd_err": ssd_err, "row": row}
+    return {"fwd_k4": k4, "fwd_k4_routes": k4_routes, "ssd_err": ssd_err, "row": row,
+            "k4_share": k4_share}
 
 
 # --------------------------------------------------------------------------- #
@@ -2337,10 +2423,13 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "launches": ssm["fwd_k4"],
         "launches_by_path": {"mamba2-2.7b forward": ssm["fwd_k4"]},
-        "max_abs_err": max(ssd_err, ssm["ssd_err"]),
+        "routes": SSD_KERNELS,
+        "route_launches_by_path": {"mamba2-2.7b forward": ssm["fwd_k4_routes"]},
+        "tc_share_by_path": {"mamba2-2.7b forward": ssm["k4_share"]},
+        "max_abs_err": max(ssd_err, ssm["ssd_err"]), "main_path_route": ssm["row"]["route"],
         **{key: ssm["row"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "chunked_ms")},
+            "chunked_ms", "fwd_ms", "bound_ms_fwd", "bound_by_fwd")},
     }, {
         "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
         "replaces": RGLRU_REPLACES, "launches": hybrid["fwd_k5"],

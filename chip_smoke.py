@@ -45,7 +45,17 @@ fatal on failure:
            planted fault (the last chunk's local state dropped from route
            tc's final state at mamba2-2.7b's shape) that the check must
            fail; K5 at the CPU tests' shapes,
-           ragged S and W, and recurrentgemma-9b's full width (fp32);
+           ragged S and W, the ring's edges (S off its 32-step tile, W off
+           its 64 channels, one tile) and recurrentgemma-9b's full width,
+           the first entry through every route that can take each
+           (`rglru_routes`: the ring where its copies can go, then route
+           fwd, the one-thread-a-channel kernel, forced) against the exact
+           recurrence, the
+           gated entry (r, i, x in, a and b formed in the kernel) against
+           `ref.rglru_gated_ref`, both by `rglru_close`, and a planted
+           fault at full width on the ring (the carry into the last tile
+           dropped; the first entry in fp32, the gated in bf16) that the
+           check must fail;
            K2 and K1 also at recurrentgemma-9b's local attention (MQA,
            G=16, D=256, window 2048; B=1 S=4096 so that the window masks;
            K1 on a 2048-slot ring past its wrap). K1 in both layouts and at
@@ -114,9 +124,11 @@ fatal on failure:
            admitted request from a fresh state (LM.reset_slot).
 10. hybrid recurrentgemma-9b (38 layers: 12 superblocks of rec, rec,
            local attention, and 2 tail rec blocks), drawn in bf16: its
-           forward at B=4, S=2048 (12 K2 and 26 K5 launches); every K5
-           call against the exact recurrence (fp32 TOL, elementwise) and
-           every K2 call against the plain version (with the bf16-P term);
+           forward at B=4, S=2048 (12 K2 and 26 K5 launches, all K5
+           through the gated entry on the ring); every K5 call against
+           `ref.rglru_gated_ref` (`rglru_close`: y at bf16's TOL, h at
+           fp32's) and every K2 call against the plain version (with the
+           bf16-P term);
            the logits against the forward with both plain versions on
            `conditioned` weights (2e-2 of the largest logit); 128
            teacher-forced decode steps (K1, 12 launches a step, and the O(1)
@@ -125,10 +137,14 @@ fatal on failure:
            their logits against the same decode with the plain attention
            (2e-2 of the largest logit; prefill against decode in bf16 is
            `python -m repro_torch.launch.hybrid_conditioning`, ROADMAP
-           Queue 3); K5, its plain version and the model's CPU algorithm (the
-           doubling scan) run on the card, K2 against its plain version
+           Queue 3); K5's first entry on the ring and on route fwd, its
+           plain version and the model's CPU algorithm (the doubling scan)
+           run on the card, the gated entry against its plain version and
+           the unfused model path (eager gate math, then route fwd), K2 against its plain version
            and scaled_dot_product_attention at D=256, K1 on the hybrid's
-           rings; forward and decode step times, a profile, peak memory.
+           rings; forward and decode step times, a profile, which must
+           show all of K5's device time in the ring (`RGLRU_KERNELS`), peak
+           memory.
            Served as in 3 on the `conditioned` weights (K1 = 12 x engine
            steps), then served again with every K1 call held against the
            plain version (`k1_limit`).
@@ -202,6 +218,12 @@ SSD_KERNELS = {"tc": "ssd_tc_", "fwd": "ssd_fwd"}
 SSD_ANY = "ssd_"
 RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 RGLRU_REPLACES = "src/repro/kernels/rglru_scan.py:52"
+# K5's kernels by route (rglru_scan._route): "ring" takes both entries, and
+# the recurrentgemma forward runs all of its K5 calls there, through the
+# gated entry; "fwd" is the one-thread-a-channel kernel; "rglru_" names
+# every K5 kernel
+RGLRU_KERNELS = {"ring": "rglru_ring", "fwd": "rglru_fwd"}
+RGLRU_ANY = "rglru_"
 KERNELS = ("decode_attention", "flash_attention", "moe_gmm", "ssd_scan",
            "rglru_scan")
 
@@ -1960,9 +1982,25 @@ RGLRU_CASES = [
     ("ragged B2 S37 W100", 2, 37, 100, ("float32", "bfloat16")),
     ("ragged B1 S300 W129", 1, 300, 129, ("float32", "bfloat16")),
     ("ragged B3 S1 W7", 3, 1, 7, ("float32", "bfloat16")),
-    # the model's a and b are fp32
-    ("recurrentgemma-9b B4 S2048 W4096", 4, 2048, 4096, ("float32",)),
+    # the ring's edges: S off its 32-step tile, W off its 64 channels, one tile
+    ("ring edges B2 S45 W200", 2, 45, 200, ("float32", "bfloat16")),
+    ("ring edges B1 S70 W136", 1, 70, 136, ("float32", "bfloat16")),
+    ("one tile B1 S32 W64", 1, 32, 64, ("float32", "bfloat16")),
+    ("recurrentgemma-9b B4 S2048 W4096", 4, 2048, 4096, ("float32", "bfloat16")),
 ]
+# the gated entry (r, i, x -> a, b in the kernel) at the CPU tests' shapes and
+# recurrentgemma-9b's full width; the model's calls are bf16
+RGLRU_GATED_CASES = [
+    ("test_kernels B2 S128 W256", 2, 128, 256, ("float32", "bfloat16")),
+    ("ring edges B2 S45 W200", 2, 45, 200, ("float32", "bfloat16")),
+    ("ring edges B1 S70 W136", 1, 70, 136, ("float32", "bfloat16")),
+    ("one tile B1 S32 W64", 1, 32, 64, ("float32", "bfloat16")),
+    ("ring edges B3 S1 W8", 3, 1, 8, ("float32", "bfloat16")),
+    ("recurrentgemma-9b B4 S2048 W4096", 4, 2048, 4096, ("float32", "bfloat16")),
+]
+# where phase 2 plants a fault on the ring that the check must catch: the
+# carry into the last tile dropped (the first entry in fp32, the gated in bf16)
+RGLRU_PLANTED_FAULT_CASE = "recurrentgemma-9b B4 S2048 W4096"
 
 
 def rglru_inputs(gen, dev, dtype, B, S, W):
@@ -1979,6 +2017,22 @@ def rglru_inputs(gen, dev, dtype, B, S, W):
     return ab[..., :W], ab[..., W:], h0
 
 
+def gated_inputs(gen, dev, dtype, B, S, W):
+    """The gated entry's inputs, as the CPU tests draw them: r, i =
+    sigmoid(N(0,1)) and x = N(0,1) in ``dtype``, views of one wider buffer;
+    log_a_base = log sigmoid(0.5 N(0,1)) (lambda at the specs' init) and
+    h0 = N(0,1), fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    rix = torch.randn(B, S, 3 * W, generator=gen, device=dev)
+    rix[..., :2 * W].sigmoid_()
+    rix = rix.to(dtype)
+    lab = F.logsigmoid(0.5 * torch.randn(W, generator=gen, device=dev))
+    h0 = torch.randn(B, W, generator=gen, device=dev)
+    return rix[..., :W], rix[..., W:2 * W], rix[..., 2 * W:], lab, h0
+
+
 def rglru_close(y, h, wy, wh, tol):
     """(max abs error, within tolerance) of K5's y and h against its plain
     version, elementwise at rtol = atol = tol."""
@@ -1991,84 +2045,172 @@ def rglru_close(y, h, wy, wh, tol):
     return err, ok
 
 
+def rglru_routes(a, b) -> list[str]:
+    """Every K5 route that can take a call of the first entry: the one
+    ``rglru_scan._route`` picks first, then "fwd" forced where it picked
+    "ring" ("fwd" takes any call, "ring" only its alignment)."""
+    from repro_torch.kernels import rglru_scan
+
+    main = rglru_scan._route(a, b)
+    return [main] + (["fwd"] if main == "ring" else [])
+
+
+def dropped_last_carry(streams, h0, y, lab=None):
+    """What a ring that dropped the carry into its last tile would return:
+    y with the last tile's steps scanned from 0, and that scan's final
+    state (the gated entry's when ``lab`` is given)."""
+    import torch
+
+    from repro_torch.kernels import build, ref
+
+    T = build.cu_constant("rglru_scan", "RING_T")
+    t0 = (y.shape[1] - 1) // T * T
+    tail = [s[:, t0:] for s in streams]
+    zeros = torch.zeros_like(h0)
+    yt, ht = (ref.rglru_ref(*tail, zeros) if lab is None
+              else ref.rglru_gated_ref(*tail, lab, zeros))
+    bad = y.clone()
+    bad[:, t0:] = yt
+    return bad, ht
+
+
 def phase_rglru_kernels(dev) -> dict:
-    """K5 against its plain version (the exact recurrence); returns the
-    largest abs error of the fp32 and of the bf16 cases."""
+    """K5 against its plain versions: the first entry through every route
+    that can take each case against the exact recurrence, the gated entry
+    against ``ref.rglru_gated_ref``; returns the largest abs error of each
+    entry and dtype. A planted fault on the ring (the carry into the last
+    tile dropped) must fail the check, for each entry at full width."""
     import torch
 
     from repro_torch.kernels import ref, rglru_scan
 
     gen = torch.Generator(device=dev).manual_seed(9753)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {}
+
+    def held(what, name, dname, y, h, want, tol, planted=None):
+        err, ok = rglru_close(y, h, *want, tol)
+        worst[what] = max(worst.get(what, 0.0), err)
+        log(f"[kernels] {what:30s} {name:34s} {dname:9s} max_abs_err={err:.3e} tol={tol:g} "
+            f"(+{tol:g} relative; h at fp32 tol) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its plain version: {what}, {name}, "
+                                 f"{dname}")
+        if planted is not None:
+            bad, bh = planted
+            err, ok = rglru_close(bad, bh, *want, tol)
+            over = int(((bad.float() - want[0].float()).abs()
+                        > tol + tol * want[0].float().abs()).sum())
+            log(f"[kernels] {what:30s} {name:34s} {dname:9s} planted fault on the ring: "
+                f"the carry into the last tile dropped: max_abs_err={err:.3e}, {over} of "
+                f"{bad.numel()} outputs over the tolerance: "
+                f"{'passes: NOT CAUGHT' if ok else 'FAIL, as it must'}")
+            if ok:
+                raise AssertionError(f"K5's check does not catch a dropped carry: {what}")
+
     for name, B, S, W, dtypes in RGLRU_CASES:
         for dname in dtypes:
-            tol = TOL[dname]
             a, b, h0 = rglru_inputs(gen, dev, getattr(torch, dname), B, S, W)
-            y, h = rglru_scan.rglru_scan(a, b, h0)
+            want = ref.rglru_ref(a, b, h0)
+            for n, route in enumerate(rglru_routes(a, b)):
+                y, h = rglru_scan.rglru_scan(a, b, h0) if n == 0 else rglru_scan.launch(
+                    a, b, h0, route)
+                torch.cuda.synchronize()
+                plant = (route == "ring" and dname == "float32"
+                         and name == RGLRU_PLANTED_FAULT_CASE)
+                held(f"rglru_scan route {route}{'' if n == 0 else ' (forced)'}", name,
+                     dname, y, h, want, TOL[dname],
+                     dropped_last_carry((a, b), h0, y) if plant else None)
+                del y, h
+            del a, b, h0, want
+    for name, B, S, W, dtypes in RGLRU_GATED_CASES:
+        for dname in dtypes:
+            r, i, x, lab, h0 = gated_inputs(gen, dev, getattr(torch, dname), B, S, W)
+            want = ref.rglru_gated_ref(r, i, x, lab, h0)
+            y, h = rglru_scan.rglru_gated(r, i, x, lab, h0)
             torch.cuda.synchronize()
-            err, ok = rglru_close(y, h, *ref.rglru_ref(a, b, h0), tol)
-            worst[dname] = max(worst[dname], err)
-            log(f"[kernels] rglru_scan {name:34s} {dname:9s} max_abs_err={err:.3e} "
-                f"tol={tol:g} (+{tol:g} relative; h at fp32 tol) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"rglru_scan disagrees with its plain version: "
-                                     f"{name}, {dname}")
-            del a, b, h0, y, h
+            plant = dname == "bfloat16" and name == RGLRU_PLANTED_FAULT_CASE
+            held("rglru_gated route ring", name, dname, y, h, want, TOL[dname],
+                 dropped_last_carry((r, i, x), h0, y, lab) if plant else None)
+            del r, i, x, lab, h0, want, y, h
     return worst
 
 
 def plain_hybrid():
-    """Every kernel of the hybrid path (K1, K2, K5) as its plain version."""
+    """Every kernel of the hybrid path (K1, K2, K5's gated entry) as its
+    plain version."""
     from repro_torch.kernels import ref
 
     return plain_ops(flash_decode=plain_decode, flash_attention=plain_flash,
-                     rglru=ref.rglru_ref)
+                     rglru_gated=ref.rglru_gated_ref)
 
 
 @contextlib.contextmanager
 def checked_rglru():
-    """Run K5 and, on the same inputs, its plain version at every scan;
-    yields (max abs err, within fp32 TOL) per call, by ``rglru_close``."""
+    """Run K5's gated entry (the model's) and, on the same inputs, its plain
+    version at every scan; yields (max abs err, within tolerance) per call,
+    by ``rglru_close``: y at its dtype's TOL, h at fp32's."""
     from repro_torch.kernels import ops, ref
 
-    kernel, found = ops.rglru, []
+    kernel, found = ops.rglru_gated, []
 
-    def checked(a, b, h0):
-        y, h = kernel(a, b, h0)
-        found.append(rglru_close(y, h, *ref.rglru_ref(a, b, h0), TOL["float32"]))
+    def checked(r, i, x, lab, h0):
+        y, h = kernel(r, i, x, lab, h0)
+        tol = TOL[str(x.dtype).removeprefix("torch.")]
+        found.append(rglru_close(y, h, *ref.rglru_gated_ref(r, i, x, lab, h0), tol))
         return y, h
 
-    ops.rglru = checked
+    ops.rglru_gated = checked
     try:
         yield found
     finally:
-        ops.rglru = kernel
+        ops.rglru_gated = kernel
 
 
-def rglru_bound(B, S, W, es):
-    """The least time of the scan: a and b read and y written once (``es``
-    bytes an element), h0 read and h written once in fp32; one FMA an
-    element at the fp32 rate."""
-    moved = 3 * B * S * W * es + 2 * B * W * 4
+def rglru_bound(B, S, W, es, gated=False):
+    """The least time of the scan: its streams read and y written once
+    (``es`` bytes an element: a and b, or gated r, i and x), h0 read and h
+    written once in fp32 (and log_a_base when gated); at the fp32 rate one
+    FMA an element, and gated 12 operations more (two exps and a sqrt
+    counted as one each)."""
+    moved = (4 if gated else 3) * B * S * W * es + 2 * B * W * 4 + (W * 4 if gated else 0)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * B * S * W / PEAK_FLOPS["float32"] * 1e3
+    t_ops = (14 if gated else 2) * B * S * W / PEAK_FLOPS["float32"] * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), moved
 
 
-def time_rglru_shape(dev, flush, B, S, W):
-    """K5, its plain version (the step recurrence) and the model's CPU
-    algorithm (the doubling scan) run on the card, at one shape in fp32 (the
-    model's a and b). No single PyTorch call computes the scan."""
+def unfused_gated(r, i, x, lab, h0, route="fwd"):
+    """The model's unfused path on the card, for timing: a and b formed by
+    eager fp32 ops (``ref.rglru_decay_input``), h0 folded into the first
+    step, K5's first entry on ``route`` from zeros, y cast to x's dtype."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref, rglru_scan
+
+    a, b = ref.rglru_decay_input(r, i, x, lab)
+    b[:, 0] += a[:, 0] * h0
+    y, h = rglru_scan.launch(a, b, torch.zeros_like(h0), route)
+    return y.to(x.dtype), h
+
+
+def time_rglru_shape(dev, flush, B, S, W):
+    """K5 at one shape. The first entry in fp32 (a and b as the unfused model
+    formed them) on the route it takes (the ring) and on route fwd forced,
+    its plain version (the step recurrence) and the model's CPU algorithm
+    (the doubling scan) run on the card; the gated entry in bf16 (the
+    model's call), its plain version, and the unfused model path (a and b by
+    eager ops, then route fwd; and then the ring). No single PyTorch call
+    computes either."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, rglru_scan
     from repro_torch.models.rglru import associative_scan
 
-    a, b, h0 = rglru_inputs(torch.Generator(device=dev).manual_seed(10), dev,
-                            torch.float32, B, S, W)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    a, b, h0 = rglru_inputs(gen, dev, torch.float32, B, S, W)
     a, b = a.contiguous(), b.contiguous()
-    row = {"ms": time_ms(lambda: ops.rglru(a, b, h0), flush),
+    row = {"route": rglru_scan._route(a, b),
+           "ms": time_ms(lambda: ops.rglru(a, b, h0), flush),
+           "fwd_ms": time_ms(lambda: rglru_scan.launch(a, b, h0, "fwd"), flush),
            "plain_ms": time_ms(lambda: ref.rglru_ref(a, b, h0), flush, 5, warmup=1),
            "scan_ms": time_ms(lambda: associative_scan(a, b), flush, 5, warmup=1),
            "library_ms": None}
@@ -2076,6 +2218,21 @@ def time_rglru_shape(dev, flush, B, S, W):
     row["shape"] = (f"B={B} S={S} W={W} fp32 a/b/y, contiguous; plain = "
                     f"ref.rglru_ref (the step recurrence)")
     row["bound_note"] = f"{moved / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+    del a, b
+    r, i, x, lab, h0 = (t.contiguous() for t in gated_inputs(gen, dev, torch.bfloat16,
+                                                             B, S, W))
+    g = {"ms": time_ms(lambda: ops.rglru_gated(r, i, x, lab, h0), flush),
+         "plain_ms": time_ms(lambda: ref.rglru_gated_ref(r, i, x, lab, h0), flush, 5,
+                             warmup=1),
+         "unfused_fwd_ms": time_ms(lambda: unfused_gated(r, i, x, lab, h0), flush, 20),
+         "unfused_ring_ms": time_ms(lambda: unfused_gated(r, i, x, lab, h0, "ring"),
+                                    flush, 20),
+         "library_ms": None}
+    (g["bound_ms"], g["bound_by"]), moved = rglru_bound(B, S, W, 2, gated=True)
+    g["shape"] = (f"B={B} S={S} W={W} bf16 r/i/x/y, contiguous; plain = "
+                  f"ref.rglru_gated_ref (eager gate math, the step recurrence)")
+    g["bound_note"] = f"{moved / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+    row["gated"] = g
     return row
 
 
@@ -2120,17 +2277,20 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
     torch.cuda.synchronize()
     flash_attention.flash_attention_fwd.launches = 0
     rglru_scan.rglru_scan.launches = 0
+    rglru_scan.rglru_scan.route_launches = dict.fromkeys(
+        rglru_scan.rglru_scan.route_launches, 0)
     logits = step(params, batch)
     torch.cuda.synchronize()
     k2 = flash_attention.flash_attention_fwd.launches
     k5 = rglru_scan.rglru_scan.launches
+    k5_routes = dict(rglru_scan.rglru_scan.route_launches)
     finite = all(bool(torch.isfinite(row).all()) for row in logits)
     ok = (tuple(logits.shape) == (B, S, cfg.vocab) and finite
-          and k2 == n_attn and k5 == n_rec)
+          and k2 == n_attn and k5 == n_rec == k5_routes["gated ring"])
     log(f"[hybrid] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}: logits "
         f"{tuple(logits.shape)}, finite {finite}; flash_attention launches {k2} "
-        f"(want {n_attn}), rglru_scan launches {k5} (want {n_rec}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"(want {n_attn}), rglru_scan launches {k5} (want {n_rec}, all through the "
+        f"gated entry on the ring): {k5_routes} {'ok' if ok else 'FAIL'}")
     del logits
 
     # a. every K5 and K2 call of the forward against its plain version
@@ -2139,10 +2299,11 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
         step(params, batch)
     rglru_err = max(e for e, _ in found5)
     good = len(found5) == n_rec and all(held for _, held in found5)
-    log(f"[hybrid] a. {cfg.name} K5 calls of the forward against the exact "
-        f"recurrence on the model's fp32 a and b: {len(found5)} calls, "
-        f"max_abs_err={rglru_err:.3e} (fp32 tol {TOL['float32']:g} + "
-        f"{TOL['float32']:g} relative) {'ok' if good else 'FAIL'}")
+    log(f"[hybrid] a. {cfg.name} K5 calls of the forward (the gated entry) against "
+        f"ref.rglru_gated_ref on the model's r, i and x: {len(found5)} calls, "
+        f"max_abs_err={rglru_err:.3e} (y at the {cfg.compute_dtype} tol "
+        f"{TOL[cfg.compute_dtype]:g} + {TOL[cfg.compute_dtype]:g} relative, h at "
+        f"fp32's {TOL['float32']:g}) {'ok' if good else 'FAIL'}")
     ok &= good
     attn_err = max(e.item() for e, _ in found2)
     good = len(found2) == n_attn and max(x.item() for _, x in found2) <= 0
@@ -2219,11 +2380,20 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
                                              cfg.n_kv_heads, cfg.local_window,
                                              cfg.hd)}
     r = rows["rglru"]
-    log(f"[timing] rglru_scan ({r['shape']}): kernel_ms={r['ms']:.6f} plain_ms="
-        f"{r['plain_ms']:.6f} scan_ms={r['scan_ms']:.6f} (the model's doubling "
-        f"scan) library_ms=n/a (no single PyTorch call) bound_ms="
+    log(f"[timing] rglru_scan ({r['shape']}): kernel_ms={r['ms']:.6f} (route "
+        f"{r['route']}) fwd_ms={r['fwd_ms']:.6f} (route fwd forced) "
+        f"plain_ms={r['plain_ms']:.6f} scan_ms={r['scan_ms']:.6f} (the model's "
+        f"doubling scan) library_ms=n/a (no single PyTorch call) bound_ms="
         f"{r['bound_ms']:.6f} ({r['bound_by']}: {r['bound_note']}); "
-        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
+        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound on route {r['route']}, "
+        f"{r['bound_ms'] / r['fwd_ms'] * 100:.1f}% on route fwd")
+    g = r["gated"]
+    log(f"[timing] rglru_gated ({g['shape']}): kernel_ms={g['ms']:.6f} (route ring) "
+        f"plain_ms={g['plain_ms']:.6f} unfused_fwd_ms={g['unfused_fwd_ms']:.6f} (the "
+        f"unfused model path: eager gate math, route fwd, cast) unfused_ring_ms="
+        f"{g['unfused_ring_ms']:.6f} (the same on the ring) library_ms=n/a bound_ms="
+        f"{g['bound_ms']:.6f} ({g['bound_by']}: {g['bound_note']}); "
+        f"{g['bound_ms'] / g['ms'] * 100:.1f}% of the bound")
     r = rows["flash"]
     lib = ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.6f} "
            f"(scaled_dot_product_attention, causal: the window cuts nothing at "
@@ -2238,10 +2408,12 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
             f"{decode_row_text(r)}")
     run = {"model": model, "params": params, "batch": batch}
     fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3, plain=plain_hybrid)
-    busy, launches, (k2_ms, k5_ms, tma_ms) = profile_forward(
-        run, keys=("flash_fwd_", "rglru_fwd", FLASH_TMA))
+    busy, launches, (k2_ms, k5_ms, tma_ms, ring_ms) = profile_forward(
+        run, keys=("flash_fwd_", RGLRU_ANY, FLASH_TMA, RGLRU_KERNELS["ring"]))
     k2_share = all_in_kernel(f"full-width {cfg.name} forward", "K2 (flash_fwd_*)",
                              k2_ms, tma_ms, FLASH_TMA)
+    k5_share = all_in_kernel(f"full-width {cfg.name} forward", f"K5 ({RGLRU_ANY}*)",
+                             k5_ms, ring_ms, RGLRU_KERNELS["ring"])
     log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
         f"K2 and K5 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with "
         f"their plain versions")
@@ -2261,9 +2433,10 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
         f"{serve['steps']} steps in {serve['wall_s']:.3f} s")
     log(f"[hybrid] peak device memory of the {cfg.name} phase: "
         f"{gb(torch.cuda.max_memory_allocated())}")
-    return {"fwd_k2": k2, "fwd_k5": k5, "dec_k1": k1, "serve_k1": serve["launches"],
-            "rglru_err": rglru_err, "attn_err": attn_err, "rows": rows,
-            "k2_share": k2_share}
+    return {"fwd_k2": k2, "fwd_k5": k5, "fwd_k5_routes": k5_routes, "dec_k1": k1,
+            "serve_k1": serve["launches"], "rglru_err": rglru_err, "attn_err": attn_err,
+            "rows": rows, "k2_share": k2_share, "k5_share": k5_share,
+            "k5_ms": k5_ms}
 
 
 def card() -> str:
@@ -2431,14 +2604,19 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "chunked_ms", "fwd_ms", "bound_ms_fwd", "bound_by_fwd")},
     }, {
+        # top-level numbers: the gated entry in bf16, the main path's call
         "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
         "replaces": RGLRU_REPLACES, "launches": hybrid["fwd_k5"],
         "launches_by_path": {"recurrentgemma-9b forward": hybrid["fwd_k5"]},
-        "max_abs_err": max(rglru_err["float32"], hybrid["rglru_err"]),
-        "max_abs_err_bf16": rglru_err["bfloat16"],
-        **{key: hybrid["rows"]["rglru"][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "scan_ms")},
+        "routes": RGLRU_KERNELS,
+        "route_launches_by_path": {"recurrentgemma-9b forward": hybrid["fwd_k5_routes"]},
+        "ring_share_by_path": {"recurrentgemma-9b forward": hybrid["k5_share"]},
+        "device_ms_by_path": {"recurrentgemma-9b forward": hybrid["k5_ms"]},
+        "max_abs_err": max(max(rglru_err.values()), hybrid["rglru_err"]),
+        "max_abs_err_by_check": rglru_err,
+        **hybrid["rows"]["rglru"]["gated"],
+        "first_entry": {key: value for key, value in hybrid["rows"]["rglru"].items()
+                        if key != "gated"},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card(), flush=True)

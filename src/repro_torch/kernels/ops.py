@@ -58,3 +58,13 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """a, b [B,S,W]; h0 [B,W] fp32 (model layout) -> (y [B,S,W] in a's
     dtype, final state [B,W] fp32)."""
     return _rg.rglru_scan(a, b, h0)
+
+
+def rglru_gated(r: torch.Tensor, i: torch.Tensor, x: torch.Tensor,
+                log_a_base: torch.Tensor, h0: torch.Tensor):
+    """K5's gated entry, the one the model takes on the card: r, i, x
+    [B,S,W] (the gates' sigmoids and the block's input, one dtype);
+    log_a_base [W] fp32; h0 [B,W] fp32 -> (y [B,S,W] in x's dtype, final
+    state [B,W] fp32). The decay and gated input never reach device
+    memory."""
+    return _rg.rglru_gated(r, i, x, log_a_base, h0)

@@ -86,6 +86,27 @@ def rglru_ref(a, b, h0):
     return y.to(a.dtype), h
 
 
+def rglru_decay_input(r, i, x, log_a_base):
+    """The RG-LRU's decay and gated input in fp32 (JAX rglru.py:82-86):
+    a = exp(8 r log_a_base), b = sqrt(max(1 - exp(2 log a), 1e-12)) i x.
+    r, i (the gates' sigmoids) and x in any float dtype, cast first;
+    log_a_base = log sigmoid(lambda), fp32, broadcast against them."""
+    log_a = 8.0 * r.float() * log_a_base
+    a = torch.exp(log_a)
+    gated = i.float() * x.float()
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * gated
+    return a, b
+
+
+def rglru_gated_ref(r, i, x, log_a_base, h0):
+    """K5's gated entry: the step recurrence of ``rglru_decay_input`` from
+    h0. r, i, x [B,S,W]; log_a_base [W]; h0 [B,W]. Returns (y [B,S,W] in
+    x's dtype, h_final [B,W] fp32)."""
+    a, b = rglru_decay_input(r, i, x, log_a_base)
+    y, h = rglru_ref(a, b, h0)
+    return y.to(x.dtype), h
+
+
 def moe_gmm_ref(x, w):
     """x [E,C,D]; w [E,D,F] -> [E,C,F] in x's dtype, summed in fp32."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

@@ -50,7 +50,7 @@ BOUND = 2e-2                  # of the largest logit
 @contextlib.contextmanager
 def plain_kernels():
     """Route K1, K2 and K5 through their plain versions."""
-    saved = ops.flash_attention, ops.flash_decode, ops.rglru
+    saved = ops.flash_attention, ops.flash_decode, ops.rglru_gated
 
     def flash(q, k, v, *, causal=True, window=None):
         return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -61,11 +61,12 @@ def plain_kernels():
         return ref.flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2),
                                     cpos, qpos, window=window)
 
-    ops.flash_attention, ops.flash_decode, ops.rglru = flash, decode, ref.rglru_ref
+    ops.flash_attention, ops.flash_decode, ops.rglru_gated = (flash, decode,
+                                                             ref.rglru_gated_ref)
     try:
         yield
     finally:
-        ops.flash_attention, ops.flash_decode, ops.rglru = saved
+        ops.flash_attention, ops.flash_decode, ops.rglru_gated = saved
 
 
 def held(what, got, want, *, bound=True):

@@ -1,10 +1,12 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427) in torch.
 
-Port of ``repro/models/rglru.py``. The full-sequence recurrence runs the
-hand-written kernel K5 (``ops.rglru``) on CUDA tensors; on CPU tensors it
-runs ``associative_scan``, the JAX model's own algorithm (a log-depth
-doubling scan over the sequence in place of ``lax.associative_scan``),
-which is also the plain yardstick the card checks time K5 against. The
+Port of ``repro/models/rglru.py``. On CUDA tensors the full-sequence
+recurrence runs K5's gated entry (``gated_scan`` -> ``ops.rglru_gated``):
+the hand-written kernel takes the gates' sigmoids and the block's input and
+forms the decay and gated input in registers, so they never reach device
+memory. On CPU tensors it runs ``associative_scan``, the JAX model's own
+algorithm (a log-depth doubling scan over the sequence in place of
+``lax.associative_scan``) on ``ref.rglru_decay_input``'s a and b. The
 decode step is the O(1) recurrence, as in JAX; it updates its cache (conv
 buffer and fp32 state) in place.
 
@@ -24,10 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.mamba2 import _causal_conv
-
-_C = 8.0
 
 
 def _heads(cfg):
@@ -57,27 +58,28 @@ def rglru_specs(cfg) -> dict:
 
 
 def _gates(params, xh):
-    """xh [B,S,H,hd] -> (r, i) [B,S,H,hd] fp32: the einsums and sigmoids
-    run in xh's dtype, and only then are cast (JAX rglru.py:62-72)."""
+    """xh [B,S,H,hd] -> (r, i) [B,S,H,hd] in xh's dtype: the einsums and
+    sigmoids run in xh's dtype (JAX rglru.py:62-72, which then casts them to
+    fp32; here ``ref.rglru_decay_input`` or K5's gated entry casts)."""
     dt_ = xh.dtype
     r = torch.sigmoid(torch.einsum("bshp,hpq->bshq", xh, params["wa"].to(dt_))
                       + params["ba"].to(dt_))
     i = torch.sigmoid(torch.einsum("bshp,hpq->bshq", xh, params["wx"].to(dt_))
                       + params["bx"].to(dt_))
-    return r.float(), i.float()
+    return r, i
+
+
+def _log_a_base(params):
+    """log sigmoid(lambda) [W] in fp32."""
+    return F.logsigmoid(params["lam"].float())
 
 
 def _decay_and_input(params, xh):
     """xh [B,S,H,hd] -> (a, b) [B,S,H,hd] fp32, the recurrence's decay and
-    gated input: a = exp(8 r log sigmoid(lam)) with lam in fp32, and
-    b = sqrt(max(1 - a^2, 1e-12)) i x."""
+    gated input (``ref.rglru_decay_input``)."""
     nh, hd = xh.shape[-2:]
     r, i = _gates(params, xh)
-    log_a = _C * r * F.logsigmoid(params["lam"].float().reshape(nh, hd))
-    a = torch.exp(log_a)
-    gated = i * xh.float()
-    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * gated
-    return a, b
+    return kref.rglru_decay_input(r, i, xh, _log_a_base(params).reshape(nh, hd))
 
 
 def associative_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,6 +100,8 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_scan(params, cfg, x, h0=None):
     """x [B,S,W] -> (y [B,S,W] in x's dtype, h_final [B,W] fp32)."""
+    if x.is_cuda:
+        return gated_scan(params, cfg, x, h0)
     B, S, W = x.shape
     width, nh, hd = _heads(cfg)
     a, b = _decay_and_input(params, x.reshape(B, S, nh, hd))
@@ -105,12 +109,22 @@ def rglru_scan(params, cfg, x, h0=None):
     if h0 is not None:
         # fold h0 into the first step: h_1 = a_1 h0 + b_1 (rglru.py:89-91)
         b[:, 0] += a[:, 0] * h0.reshape(B, W)
-    if x.is_cuda:
-        h, h_final = kops.rglru(a, b, b.new_zeros((B, W)))
-    else:
-        h = associative_scan(a, b)
-        h_final = h[:, -1]
-    return h.to(x.dtype), h_final
+    h = associative_scan(a, b)
+    return h.to(x.dtype), h[:, -1]
+
+
+def gated_scan(params, cfg, x, h0=None):
+    """The card's path of ``rglru_scan``: the gates, then K5's gated entry
+    (``ops.rglru_gated``) on the gates' sigmoids, x and log sigmoid(lambda),
+    from h0 (zeros if None). On CPU tensors ``ops.rglru_gated`` runs its
+    plain version."""
+    B, S, W = x.shape
+    width, nh, hd = _heads(cfg)
+    r, i = _gates(params, x.reshape(B, S, nh, hd))
+    h0 = (x.new_zeros((B, W), dtype=torch.float32) if h0 is None
+          else h0.reshape(B, W).float())
+    return kops.rglru_gated(r.reshape(B, S, W), i.reshape(B, S, W), x,
+                            _log_a_base(params), h0)
 
 
 def rglru_block(params: dict, cfg, sharder, x: torch.Tensor, h0=None, *,

@@ -118,6 +118,57 @@ def test_rglru_block_matches_jax(dtype, with_h0):
     _close(gh, wh, tol)
 
 
+def _scan_inputs(jcfg, with_h0, seed=1):
+    B, S = 2, 40
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, jcfg.lru_width)).astype(np.float32)
+    h0 = rng.normal(size=(B, jcfg.lru_width)).astype(np.float32) if with_h0 else None
+    return x, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_scan_matches_jax(dtype, with_h0):
+    """The card's path of the scan (``gated_scan``: the gates, then K5's
+    gated entry, here its plain version on CPU tensors) against the JAX
+    model's ``rglru_scan`` on the same weights and inputs."""
+    jcfg, tcfg = _configs()
+    jdt, tdt, tol = DTYPES[dtype]
+    params = _rec_params(jcfg)
+    x, h0 = _scan_inputs(jcfg, with_h0)
+    want, wh = jrg.rglru_scan(jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+                              jnp.asarray(x).astype(jdt),
+                              None if h0 is None else jnp.asarray(h0))
+    got, gh = trg.gated_scan(params_from_numpy(params, device="cpu"), tcfg,
+                             torch.from_numpy(x).to(tdt),
+                             None if h0 is None else torch.from_numpy(h0))
+    assert got.dtype == tdt and gh.dtype == torch.float32
+    _close(got, want, tol)
+    _close(gh, wh, tol)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_scan_matches_the_cpu_scan(dtype, with_h0):
+    """Both of the port's paths of the scan on the same inputs: the card's
+    (the step recurrence from h0 on the gated entry's a and b) and the
+    CPU's (h0 folded into the first step, the doubling scan). They share
+    the gates and the formula, so they differ by the scans' fp32 order
+    (2e-5) and, in bf16, by where y's one rounding lands (one bf16 ulp)."""
+    jcfg, tcfg = _configs()
+    _, tdt, _ = DTYPES[dtype]
+    params = params_from_numpy(_rec_params(jcfg), device="cpu")
+    x, h0 = _scan_inputs(jcfg, with_h0, seed=4)
+    x = torch.from_numpy(x).to(tdt)
+    h0 = None if h0 is None else torch.from_numpy(h0)
+    got, gh = trg.gated_scan(params, tcfg, x, h0)
+    want, wh = trg.rglru_scan(params, tcfg, x, h0)
+    assert got.dtype == want.dtype == tdt
+    tol = 2e-5 if dtype == "float32" else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(gh, wh, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rglru_decode_matches_jax(dtype):
     jcfg, tcfg = _configs(compute_dtype=dtype)

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's paths at full width with random weights from a seed:
-serving smollm-360m, deepseek-moe-16b, mamba2-2.7b and recurrentgemma-9b
+serving smollm-360m (in one process, and in two server processes under
+the node broker), deepseek-moe-16b, mamba2-2.7b and recurrentgemma-9b
 (decode: K1, K3 for the experts, no kernel in mamba2's step), the
 full-sequence forward of smollm-360m, hubert-xlarge and deepseek-moe-16b
 (prefill: K2, and K3), the forward of mamba2-2.7b (K4), and the forward and
@@ -69,6 +70,22 @@ fatal on failure:
            kernel's launch count must equal attention layers x engine
            steps (LM.attention_layers); when each request reached each
            server and was admitted to a slot is logged.
+3b. multiproc  two full smollm-360m server processes behind the port's
+           MultiProcessGateway, node slots brokered by the NodeBroker
+           (2 node slots for 2 x 2 runtime slots), supervised: the
+           children start at once; nvidia-smi lists two more compute
+           processes (in a container it may show one PID for all, so
+           the lines are counted); the broker's quotas
+           split the node, and under load both servers hold grants that
+           sum to it; each child's greedy tokens for 4 prompts of 32
+           tokens (32 new, one request at a time) equal those of an
+           in-process InferenceServer on the same seed; each child's
+           engine steps and K1 launches, carried back in its responses,
+           give K1 = attention layers x steps; 4 concurrent clients
+           through the gateway, coordinated and then free-running
+           (coordinate=False), print tokens a second and the median and
+           max gateway latency beside the card (not asserted); no child
+           restarts, every child exits 0.
 4. parity  16 teacher-forced decode steps at full width in bf16: every
            attention call of the kernel against the plain version on the
            same inputs (2e-2), and the logits with the kernel and with the
@@ -665,6 +682,275 @@ def phase_serve(dev, cfg, *, params=None, prompt_len=32, max_new=32, clients=4,
             "gmm_routes": gmm_routes, "steps": sum(steps), "wall_s": wall,
             "tok_per_s": tokens / wall,
             "params": servers[0].params}
+
+
+#: the multi-process serve: two runtimes of 2 slots each want 4 slots of a
+#: node that has 2, oversubscribed 2x as in the paper
+MULTIPROC = {"archs": {"srv-a": "smollm_360m", "srv-b": "smollm_360m"},
+             "node_capacity": 2, "slots_per_server": 2, "max_batch": 4,
+             "max_len": 512, "smoke": False}
+
+
+def compute_apps() -> list[str]:
+    """The card's compute processes, one line each as nvidia-smi lists them
+    (in a container it may show every process under one PID, so a caller
+    counts the lines)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True, timeout=60)
+    return [line for line in r.stdout.splitlines() if line.strip()]
+
+
+def serve_alone(dev, cfg, prompts, max_new, *, max_batch, max_len):
+    """Greedy tokens of one in-process server (seed 0), the prompts served
+    one at a time."""
+    from repro_torch.core.policies import SchedCoop
+    from repro_torch.core.threads import UsfRuntime
+    from repro_torch.core.topology import Topology
+    from repro_torch.serve.engine import InferenceServer, Request
+
+    usf = UsfRuntime(Topology(2, 1), SchedCoop())
+    try:
+        server = InferenceServer("in-process", cfg, usf, max_batch=max_batch,
+                                 max_len=max_len, seed=0, device=dev)
+        server.start()
+        out = []
+        for p in prompts:
+            req = server.submit(Request(tokens=list(p), max_new=max_new))
+            if not req.done.wait(timeout=600.0):
+                raise AssertionError("the in-process server did not answer")
+            out.append(list(req.output))
+        server.stop()
+    finally:
+        usf.shutdown(timeout=10.0)
+    return out
+
+
+def concurrent_clients(gw, prompts, max_new):
+    """One client thread a prompt, all calling ``gw.handle`` at once;
+    returns the wall seconds and the gateway's records."""
+    import threading
+
+    recs, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            recs[i] = gw.handle(prompts[i], max_new=max_new, timeout=600.0)
+        except Exception as e:  # noqa: BLE001 - reported below, fails the run
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"client{i}")
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900.0)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"gateway clients failed: {errors!r}")
+    return wall, recs
+
+
+def child_counts(recs) -> dict:
+    """Each child's engine steps and K1 launches at its latest response
+    (both count up from the child's start)."""
+    out = {}
+    for rec in recs:
+        for name, steps in rec["steps"].items():
+            k1 = rec["launches"][name]["flash_decode"]
+            old = out.get(name, (0, 0))
+            out[name] = (max(old[0], steps), max(old[1], k1))
+    return out
+
+
+def check_child_k1(before, after, n_attn, want_steps, what) -> int:
+    """Each child decoded ``want_steps`` engine steps between the two
+    readings, every one through K1 (``n_attn`` launches a step)."""
+    total = 0
+    for name in after:
+        steps = after[name][0] - before[name][0]
+        k1 = after[name][1] - before[name][1]
+        log(f"[multiproc] {what} {name}: {steps} engine steps, flash_decode "
+            f"launches {k1} (want {n_attn} attention layers x {want_steps} = "
+            f"{n_attn * want_steps})")
+        if steps != want_steps or k1 != n_attn * want_steps:
+            raise AssertionError(f"{name}: {steps} steps and {k1} K1 launches, "
+                                 f"want {want_steps} and {n_attn * want_steps}: "
+                                 f"the child's decode bypassed the kernel")
+        total += k1
+    return total
+
+
+@contextlib.contextmanager
+def grant_samples(broker, every=0.05):
+    """The broker's grants by worker, sampled every ``every`` seconds while
+    the block runs."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.wait(every):
+            workers = broker.snapshot()["workers"]
+            samples.append({n: w["granted"] for n, w in workers.items()})
+
+    t = threading.Thread(target=sample, name="grant-sampler", daemon=True)
+    t.start()
+    try:
+        yield samples
+    finally:
+        stop.set()
+        t.join(10.0)
+
+
+def check_grants(samples, names, capacity) -> None:
+    """Under load both servers held a grant at once, and the grants summed
+    to the node's capacity and never above it."""
+    full = [s for s in samples if sorted(s) == names
+            and all(s.values()) and sum(s.values()) == capacity]
+    over = [s for s in samples if sum(s.values()) > capacity]
+    log(f"[multiproc] broker under load: {len(samples)} samples of the grants, "
+        f"{len(full)} with both servers granted summing to {capacity}, "
+        f"{len(over)} above it; first {samples[:1]}, last {samples[-1:]}")
+    if not full or over:
+        raise AssertionError(f"broker grants under load never split the node "
+                             f"between both servers, or exceeded it: {samples}")
+
+
+def colocation(recs, wall, tag, card_text) -> dict:
+    tokens = sum(len(o) for r in recs for o in r["outputs"].values())
+    lat = sorted(r["latency"] for r in recs)
+    row = {"tok_per_s": tokens / wall, "wall_s": wall, "tokens": tokens,
+           "latency_median_s": statistics.median(lat), "latency_max_s": lat[-1]}
+    log(f"[multiproc] {tag}: {len(recs)} clients x 2 server processes, "
+        f"{tokens} generated tokens in {wall:.3f} s: {row['tok_per_s']:.1f} "
+        f"tok/s; gateway latency median {row['latency_median_s']:.3f} s, max "
+        f"{row['latency_max_s']:.3f} s (all {[round(x, 3) for x in lat]}); "
+        f"card {card_text}")
+    return row
+
+
+def phase_multiproc(dev, cfg, *, prompt_len=32, max_new=32, clients=4,
+                    warm_len=4):
+    """Two server processes behind the port's MultiProcessGateway, node
+    slots brokered by the NodeBroker: (a) both children on the card, the
+    broker's quotas splitting the node's 2 slots and, under load, both
+    holding grants that sum to them; (b) each
+    child's tokens equal to an in-process server's on the same seed, the
+    prompts served one at a time, every engine step of each child through
+    K1; (c) 4 concurrent clients, coordinated and free-running; (d) every
+    child stops cleanly. Returns the K1 launches of (b) and (c)'s rows."""
+    import torch
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.multiproc import MultiProcessGateway
+
+    t_phase = time.perf_counter()
+    opts = dict(MULTIPROC)
+    archs = opts.pop("archs")
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab, (prompt_len,), generator=g).tolist()
+               for _ in range(clients)]
+    n_attn = build_model(cfg).attention_layers()
+    want = serve_alone(dev, cfg, prompts, max_new, max_batch=opts["max_batch"],
+                       max_len=opts["max_len"])
+    card_text = card()
+    rows, launches = {}, 0
+    for coordinate in (True, False):
+        tag = "coordinated" if coordinate else "free-running"
+        gw = MultiProcessGateway(archs, coordinate=coordinate, **opts)
+        sampler = contextlib.ExitStack()
+        try:
+            apps0 = compute_apps()
+            t0 = time.perf_counter()
+            gw.start(ready_timeout=300.0)
+            started = time.perf_counter() - t0
+            pids = {s.name: s.pid for s in gw.servers}
+            apps = compute_apps()
+            log(f"[multiproc] {tag}: {len(pids)} server processes {pids} ready "
+                f"in {started:.3f} s (built at once); nvidia-smi compute apps "
+                f"before {apps0}, after {apps}")
+            if len(apps) - len(apps0) != len(pids):
+                raise AssertionError(f"server processes {pids} are not all "
+                                     f"compute processes on the card: {apps0} "
+                                     f"before, {apps} after")
+            if coordinate:
+                snap = gw.broker.snapshot()["workers"]
+                quotas = {n: w["quota"] for n, w in snap.items()}
+                log(f"[multiproc] broker at start: capacity "
+                    f"{opts['node_capacity']}, quotas {quotas}, grants "
+                    f"{ {n: w['granted'] for n, w in snap.items()} } (an idle "
+                    f"server's demand decays to 0)")
+                if (sorted(quotas) != sorted(archs)
+                        or sum(quotas.values()) != opts["node_capacity"]):
+                    raise AssertionError(f"broker quotas {quotas}, want both "
+                                         f"servers summing to "
+                                         f"{opts['node_capacity']}")
+                grants = sampler.enter_context(grant_samples(gw.broker))
+            # warm each child (CUDA context, cuBLAS handle, module loads)
+            warm = gw.handle(prompts[0][:warm_len], max_new=warm_len,
+                             timeout=600.0)
+            before = child_counts([warm])
+            if coordinate:
+                got = {name: [] for name in archs}
+                t0 = time.perf_counter()
+                for p in prompts:
+                    rec = gw.handle(p, max_new=max_new, timeout=600.0)
+                    for name, out in rec["outputs"].items():
+                        got[name].append(out)
+                one_at_a_time = time.perf_counter() - t0
+                for name, outs in got.items():
+                    same = sum(a == b for a, b in zip(outs, want))
+                    log(f"[multiproc] {name}: tokens of {len(outs)} requests x "
+                        f"{max_new} equal the in-process server's (seed 0, "
+                        f"one at a time) for {same}/{len(want)}")
+                    for i, (a, b) in enumerate(zip(outs, want)):
+                        if a != b:
+                            k = next(j for j, (x, y) in enumerate(zip(a, b))
+                                     if x != y)
+                            raise AssertionError(
+                                f"{name} request {i}: token {k} is {a[k]}, the "
+                                f"in-process server's is {b[k]}")
+                after = child_counts(gw.responses)
+                launches = check_child_k1(
+                    before, after, n_attn, clients * (prompt_len - 1 + max_new),
+                    "one at a time")
+                log(f"[multiproc] one at a time: {clients} requests in "
+                    f"{one_at_a_time:.3f} s")
+                before = after
+            wall, recs = concurrent_clients(gw, prompts, max_new)
+            check_child_k1(before, child_counts(recs), n_attn,
+                           clients * (prompt_len - 1 + max_new),
+                           f"{tag} clients")
+            rows[tag] = colocation(recs, wall, tag, card_text)
+            if coordinate:
+                sampler.close()
+                check_grants(grants, sorted(archs), opts["node_capacity"])
+                b = gw.broker.snapshot()
+                log(f"[multiproc] broker counters: {b['regrants']} regrants "
+                    f"({b['demand_regrants']} on demand), {b['grants_pushed']} "
+                    f"grants pushed, {b['reclaims']} leases reclaimed")
+            snap = gw.snapshot()["servers"]
+            retried = [r["retried"] for r in gw.responses if r["retried"]]
+            if retried or any(s["restarts"] or s["failed"] or not s["alive"]
+                              for s in snap.values()):
+                raise AssertionError(f"a server process died: {snap}, "
+                                     f"retried {retried}")
+        finally:
+            sampler.close()
+            gw.stop()
+        codes = {s.name: s._proc.exitcode for s in gw.servers}
+        log(f"[multiproc] {tag}: stopped; child exit codes {codes}")
+        if any(c != 0 for c in codes.values()):
+            raise AssertionError(f"a server process exited with {codes}")
+    ratio = {key: rows["coordinated"][key] / rows["free-running"][key]
+             for key in ("tok_per_s", "latency_median_s", "latency_max_s")}
+    log(f"[multiproc] coordinated / free-running: tok/s {ratio['tok_per_s']:.3f}, "
+        f"median latency {ratio['latency_median_s']:.3f}, max latency "
+        f"{ratio['latency_max_s']:.3f}; card {card_text}")
+    log(f"[multiproc] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "rows": rows, "ratio": ratio}
 
 
 def decode_run(model, params, cache, toks, sharder, *, same_state=False):
@@ -2481,6 +2767,7 @@ def main() -> int:
     rglru_err = phase_rglru_kernels(dev)
     serve = phase_serve(dev, cfg)
     params = serve.pop("params")
+    multiproc = phase_multiproc(dev, cfg)
     phase_parity(dev, cfg, params)
     prefill = phase_prefill(dev)
 
@@ -2552,6 +2839,7 @@ def main() -> int:
     log(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
 
     k1_paths = {"smollm-360m serve": serve["launches"],
+                "smollm-360m multi-process serve": multiproc["launches"],
                 "deepseek-moe-16b serve": moe["serve_k1"],
                 "recurrentgemma-9b serve": hybrid["serve_k1"],
                 "recurrentgemma-9b decode": hybrid["dec_k1"]}

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package, and its copies of the scheduler and the configs do not drift."""
+package, and its copies of the scheduler, the broker, the trace layer and
+the configs do not drift."""
 
 import os
 import re
@@ -25,6 +26,11 @@ COPIED = sorted(
         "arbiter", "scheduler", "threads", "sync", "simtask", "autockpt")]
     + [f"core/policies/{n}.py" for n in (
         "__init__", "base", "sched_coop", "sched_fair", "sched_rr")]
+    + ["core/deadline.py", "core/events.py", "launch/rescale.py"]
+    + [f"ipc/{n}.py" for n in (
+        "__init__", "protocol", "faults", "broker", "client")]
+    + [f"trace/{n}.py" for n in (
+        "__init__", "schema", "recorder", "replayer", "ab", "adapter", "synth")]
 )
 
 _PROBE = r"""

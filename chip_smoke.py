@@ -8,10 +8,11 @@ serving smollm-360m (in one process, and in two server processes under
 the node broker), deepseek-moe-16b, mamba2-2.7b and recurrentgemma-9b
 (decode: K1, K3 for the experts, no kernel in mamba2's step), the
 full-sequence forward of smollm-360m, hubert-xlarge and deepseek-moe-16b
-(prefill: K2, and K3), the forward of mamba2-2.7b (K4), and the forward and
-decode of recurrentgemma-9b (K5 and K2 at head dim 256; K1). Checks every
-hand-written kernel on them against its plain torch version. Phases, each
-fatal on failure:
+(prefill: K2, and K3), the forward of mamba2-2.7b (K4), the forward and
+decode of recurrentgemma-9b (K5 and K2 at head dim 256; K1), and the
+forward and decode of qwen2-vl-7b on patch embeddings with M-RoPE (K2 and
+K1 at G=7). Checks every hand-written kernel on them against its plain
+torch version. Phases, each fatal on failure:
 
 1. build   nvcc builds the five kernels from src/repro_torch/kernels/csrc,
            one process a source, all at once, and ptxas reports registers,
@@ -165,6 +166,26 @@ fatal on failure:
            Served as in 3 on the `conditioned` weights (K1 = 12 x engine
            steps), then served again with every K1 call held against the
            plain version (`k1_limit`).
+11. vlm    qwen2-vl-7b (28 layers, H=28 KV=4 D=128, M-RoPE sections
+           (16, 24, 24), patch frontend 3584), fp32 weights and a bf16
+           compute copy on `conditioned` weights; not served (the engine
+           feeds token ids): its forward through make_prefill_step at B=4,
+           S=2048 on make_batch's patch embeddings with Qwen2-VL's
+           position layout (`vlm_positions`: text, an image of 32 x 56
+           patches with t constant, h the row, w the column, text from the
+           largest position + 1), 28 K2 launches, every K2 call against
+           the plain version (as in 6), and the logits against the plain
+           attention's (2e-2 of the largest logit); 64 teacher-forced
+           decode steps through make_serve_step on [4,1,3584] embeddings
+           and [3,4] positions (`decode_streams`: stream 0 arange, 1 s //
+           32, 2 s % 32 + 7), 28 x 64 K1 launches, every K1 call against
+           the plain version (`k1_limit`), and the decode logits against
+           the prefill of the same embeddings and streams (2e-2 of the
+           largest logit; the same gap with K1 and K2 both plain, and in
+           fp32, printed beside it); K2 and K1 at the model's shapes
+           against their plain versions and SDPA, forward and decode step
+           times, profiles (all of K2's device time in `FLASH_TMA`), peak
+           memory.
 Each model's weights are freed before the next model's phase.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
@@ -1168,6 +1189,27 @@ def decode_row_text(row) -> str:
             f"the wrapper's host time {row['host_us']:.1f} us a call")
 
 
+def step_inputs(dev, cfg, B, n, seed):
+    """``n`` decode steps' inputs for B rows: (tokens [n,B], or embeddings
+    [n,B,1,Din] for a non-token frontend; positions [n,B], or [n,3,B]
+    under M-RoPE, step t at position t)."""
+    import torch
+
+    from repro_torch.models.base import torch_dtype
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.frontend == "token":
+        toks = torch.randint(0, cfg.vocab, (n, B), device=dev, dtype=torch.int32,
+                             generator=gen)
+    else:
+        toks = torch.randn((n, B, 1, cfg.frontend_dim or cfg.d_model), device=dev,
+                           generator=gen).to(torch_dtype(cfg.compute_dtype))
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[:, None].repeat(1, B)
+    if cfg.mrope_sections is not None:
+        pos = pos[:, None, :].repeat(1, 3, 1)
+    return toks, pos
+
+
 def time_engine_step(dev, cfg, params, *, B=4, steps=30, plain=None):
     """Host-clock ms of one full-width decode step (synchronised), with
     the kernels and with their plain versions (``plain``, a context
@@ -1178,15 +1220,14 @@ def time_engine_step(dev, cfg, params, *, B=4, steps=30, plain=None):
     from repro_torch.runtime.sharding import Sharder
 
     model, sharder = build_model(cfg), Sharder(None)
-    toks = torch.randint(0, cfg.vocab, (steps + 5, B), device=dev, dtype=torch.int32,
-                         generator=torch.Generator(device=dev).manual_seed(9))
+    toks, positions = step_inputs(dev, cfg, B, steps + 5, 9)
 
     def run():
         cache = fresh_cache(cfg, B, 512, dev)
         times = []
         with torch.inference_mode():
             for t in range(steps + 5):
-                pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+                pos = positions[t]
                 t0 = time.perf_counter()
                 logits, cache = model.decode_step(params, cache, toks[t], pos, sharder)
                 logits.argmax(-1).cpu()
@@ -1213,11 +1254,10 @@ def profile_steps(dev, cfg, params, *, B=4, steps=3, keys=("flash_decode_",)):
 
     model, sharder = build_model(cfg), Sharder(None)
     cache = fresh_cache(cfg, B, 512, dev)
-    toks = torch.zeros(B, dtype=torch.int32, device=dev)
+    toks, positions = step_inputs(dev, cfg, B, steps + 1, 0)
 
     def step(t):
-        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
-        logits, _ = model.decode_step(params, cache, toks, pos, sharder)
+        logits, _ = model.decode_step(params, cache, toks[t], positions[t], sharder)
         logits.argmax(-1).cpu()
 
     with torch.inference_mode():
@@ -2725,6 +2765,226 @@ def phase_hybrid(dev, flush, *, B=4, S=2048, prompt=128):
             "k5_ms": k5_ms}
 
 
+# --------------------------------------------------------------------------- #
+# the VLM family: qwen2-vl-7b
+# --------------------------------------------------------------------------- #
+VLM_PREFIX, VLM_GRID = 128, (32, 56)  # text tokens, then image patch rows x columns
+
+
+def vlm_positions(dev, B, S):
+    """[3,B,S] M-RoPE streams (temporal, h, w) of a Qwen2-VL prompt: a text
+    prefix of VLM_PREFIX tokens (the three streams equal), an image of
+    VLM_GRID patches (t constant, h the row, w the column, each from the
+    prefix's length), and a text suffix that continues from the largest
+    position + 1. Every row gets the same layout."""
+    import torch
+
+    prefix, (gh, gw) = VLM_PREFIX, VLM_GRID
+    assert prefix + gh * gw < S, (prefix, VLM_GRID, S)
+    ar = lambda n: torch.arange(n, dtype=torch.int32, device=dev)  # noqa: E731
+    start = prefix + max(gh, gw)
+    suffix = start + ar(S - prefix - gh * gw)
+    streams = [torch.cat([ar(prefix), img, suffix]) for img in (
+        torch.full((gh * gw,), prefix, dtype=torch.int32, device=dev),
+        prefix + ar(gh).repeat_interleave(gw),
+        prefix + ar(gw).repeat(gh))]
+    return torch.stack(streams)[:, None, :].repeat(1, B, 1)
+
+
+def decode_streams(dev, B, T):
+    """[3,B,T] streams for the decode-vs-prefill check: stream 0 ``arange``
+    (the decode cache keys its ring on it), streams 1 and 2 distinct from
+    it and from each other."""
+    import torch
+
+    s = torch.arange(T, dtype=torch.int32, device=dev)
+    return torch.stack([s, s // 32, s % 32 + 7])[:, None, :].repeat(1, B, 1)
+
+
+def phase_vlm(dev, flush, *, B=4, S=2048, steps=64, max_len=512):
+    """qwen2-vl-7b at full width: its forward on patch embeddings with
+    Qwen2-VL's M-RoPE streams (K2) and its decode step on [B,1,Din]
+    embeddings with [3,B] positions (K1), every kernel call against its
+    plain version, the forward's logits against the plain attention's, the
+    teacher-forced decode against the prefill; timings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.inputs import conditioned, make_batch
+    from repro_torch.models.base import init_tree, param_count
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen2_vl_7b")
+    model, sharder = build_model(cfg), Sharder(None)
+    L = cfg.n_layers
+    log(f"[vlm] config {cfg.name}: {L}L d_model {cfg.d_model} H {cfg.n_heads} KV "
+        f"{cfg.n_kv_heads} (G={cfg.n_heads // cfg.n_kv_heads}) hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, qkv bias {cfg.qkv_bias}, rope_theta "
+        f"{cfg.rope_theta:g}, M-RoPE sections {cfg.mrope_sections} (pairs), "
+        f"{cfg.frontend} frontend {cfg.frontend_dim}")
+    torch.cuda.reset_peak_memory_stats()
+    # the config's fp32 weights (read by the fp32 reading of c) and their
+    # bf16 compute copy: ~42.5 GB, which leaves the phase room on the card
+    params32 = init_tree(torch.Generator(device=dev).manual_seed(0),
+                         model.param_specs(), cfg.param_dtype, dev)
+    # conditioned: attention scores O(1), as in a trained model (phase 6 b)
+    params = conditioned(cfg, model.compute_params(params32))
+    torch.cuda.synchronize()
+    log(f"[vlm] {cfg.name}: {param_count(model.param_specs()) / 1e9:.2f} B params "
+        f"drawn in {cfg.param_dtype} with a {cfg.compute_dtype} compute copy, "
+        f"conditioned: {gb(torch.cuda.memory_allocated())} on the card, peak "
+        f"{gb(torch.cuda.max_memory_allocated())}")
+
+    # the forward: make_batch's embeddings, Qwen2-VL's position layout (its
+    # three equal streams would make M-RoPE plain RoPE)
+    batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1), dev,
+                       with_labels=False)
+    ok = (tuple(batch["embeds"].shape) == (B, S, cfg.frontend_dim)
+          and tuple(batch["positions"].shape) == (3, B, S))
+    batch["positions"] = vlm_positions(dev, B, S)
+    step = make_prefill_step(model, sharder)
+    torch.cuda.synchronize()
+    flash_attention.flash_attention_fwd.launches = 0
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    k2 = flash_attention.flash_attention_fwd.launches
+    finite = all(bool(torch.isfinite(row).all()) for row in logits)
+    ok &= tuple(logits.shape) == (B, S, cfg.vocab) and finite and k2 == L
+    log(f"[vlm] forward {cfg.name} B={B} S={S} {cfg.compute_dtype}, patch "
+        f"embeddings [{B},{S},{cfg.frontend_dim}], positions [3,{B},{S}] (text "
+        f"{VLM_PREFIX}, image {VLM_GRID[0]} x {VLM_GRID[1]} patches, text): logits "
+        f"{tuple(logits.shape)}, finite "
+        f"{finite}; flash_attention launches {k2} (want {L}) "
+        f"{'ok' if ok else 'FAIL'}")
+    del logits
+
+    # a. every K2 call of the forward against the plain version
+    with checked_prefill_attention(TOL["bfloat16"]) as found2:
+        step(params, batch)
+    attn_err = max(e.item() for e, _ in found2)
+    good = len(found2) == L and max(x.item() for _, x in found2) <= 0
+    log(f"[vlm] a. {cfg.name} bf16 K2 calls (D={cfg.hd}, G="
+        f"{cfg.n_heads // cfg.n_kv_heads}) of the forward against the plain "
+        f"version on the model's inputs: {len(found2)} calls, max_abs_err="
+        f"{attn_err:.3e} (tol 2e-2 + 2e-2 relative + 2^-8 sum_j p_j |v_j|) "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    del found2
+
+    # b. logits with K2 against the plain attention
+    got = step(params, batch)
+    with plain_prefill_attention():
+        want = step(params, batch)
+    ok &= logits_close(got, want, f"b. {cfg.name} bf16 logits of all {B * S} "
+                       f"tokens, K2 vs plain attention", "vlm")
+    del got, want
+
+    # c. `steps` teacher-forced decode steps through make_serve_step on the
+    # forward's first embeddings, [3,B] positions a step: every K1 call
+    # against the plain version, and the logits against the prefill of the
+    # same embeddings and streams (K2)
+    streams = decode_streams(dev, B, steps)                       # [3,B,T]
+    emb = batch["embeds"][:, :steps]                              # [B,T,Din]
+    positions = streams.permute(2, 0, 1).contiguous()             # [T,3,B]
+
+    def decode(p, m=model, c=cfg, x=emb):
+        serve = make_serve_step(m, sharder)
+        cache = fresh_cache(c, B, max_len, dev)
+        out = []
+        for t in range(steps):
+            lg, cache = serve(p, cache, x[:, t:t + 1], positions[t])
+            out.append(lg.float())
+        return torch.stack(out, dim=1)                            # [B,T,V]
+
+    def prefill(p, m=model, x=emb):
+        return make_prefill_step(m, sharder)(p, {"embeds": x, "positions": streams})
+
+    pre = prefill(params)
+    decode_attention.flash_decode.launches = 0
+    with checked_attention(k1_limit) as found1:
+        dec = decode(params)
+    k1 = decode_attention.flash_decode.launches
+    dec_err = max(e.item() for e, _ in found1)
+    good = len(found1) == k1 == L * steps and max(x.item() for _, x in found1) <= 0
+    log(f"[vlm] c. {cfg.name} bf16 K1 calls (D={cfg.hd}, G="
+        f"{cfg.n_heads // cfg.n_kv_heads}, cache max_len {max_len}) of {steps} "
+        f"teacher-forced decode steps x B={B} ([{B},1,{cfg.frontend_dim}] "
+        f"embeddings, [3,{B}] positions) against the plain version on the model's "
+        f"inputs: {len(found1)} calls, {k1} launches (want {L} x {steps}), "
+        f"max_abs_err={dec_err:.3e} (limit {K1_LIMIT_TEXT}) "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    del found1
+    ok &= logits_close(pre, dec, f"c. {cfg.name} bf16 logits at all {steps} "
+                       f"positions, prefill (K2) vs teacher-forced decode (K1), "
+                       f"streams 0: arange, 1: s // 32, 2: s % 32 + 7", "vlm")
+    # readings beside c: the same comparison with K1 and K2 both plain, and
+    # in fp32 (the config's weights, conditioned; the kernels' fp32 routes)
+    with plain_ops(flash_decode=plain_decode, flash_attention=plain_flash):
+        plain_gap = logits_gap(prefill(params), decode(params))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32)
+    p32 = conditioned(cfg32, params32)
+    gap32 = logits_gap(prefill(p32, model32, emb.float()),
+                       decode(p32, model32, cfg32, emb.float()))
+    del p32
+    kernel_gap = logits_gap(pre, dec)
+    log(f"[vlm] c. readings, prefill vs decode max_abs_err (largest |logit|, "
+        f"argmax agreement): bf16 with K1 and K2 {kernel_gap[0]:.3e} "
+        f"({kernel_gap[1]:.3f}, {kernel_gap[2] * 100:.2f}%), bf16 with both plain "
+        f"{plain_gap[0]:.3e} ({plain_gap[1]:.3f}, {plain_gap[2] * 100:.2f}%), fp32 "
+        f"with K1 and K2 {gap32[0]:.3e} ({gap32[1]:.3f}, {gap32[2] * 100:.2f}%)")
+    del pre, dec
+    if not ok:
+        raise AssertionError("the VLM path failed its checks")
+
+    # timings
+    rows = {"flash": time_flash_shape(dev, flush, B, S, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.hd, True),
+            "decode": time_decode_shape(dev, flush, B, cfg.n_heads, cfg.n_kv_heads,
+                                        max_len, cfg.hd)}
+    r = rows["flash"]
+    log(f"[timing] flash_attention qwen2-vl shape ({r['shape']}): kernel_ms="
+        f"{r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms="
+        f"{r['library_ms']:.6f} (scaled_dot_product_attention, yardstick) bound_ms="
+        f"{r['bound_ms']:.6f} ({r['bound_by']}); "
+        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound")
+    log(f"[timing] flash_decode qwen2-vl shape ({rows['decode']['shape']}): "
+        f"{decode_row_text(rows['decode'])}")
+    run = {"model": model, "params": params, "batch": batch}
+    fwd_ms, plain_fwd_ms = time_forward(dev, run, iters=3)
+    busy, launches, (k2_ms, tma_ms) = profile_forward(
+        run, keys=("flash_fwd_", FLASH_TMA))
+    k2_share = all_in_kernel(f"full-width {cfg.name} forward", "K2 (flash_fwd_*)",
+                             k2_ms, tma_ms, FLASH_TMA)
+    log(f"[timing] full-width {cfg.name} forward B={B} S={S}: {fwd_ms:.3f} ms with "
+        f"K2 ({B * S / fwd_ms * 1e3:.0f} tok/s), {plain_fwd_ms:.3f} ms with the "
+        f"plain attention")
+    log(f"[profile] full-width {cfg.name} forward (torch.profiler, one forward): "
+        f"device busy {busy:.3f} ms ({busy / fwd_ms * 100:.1f}% of {fwd_ms:.3f} ms); "
+        f"{launches} kernel launches; flash_attention {k2_ms:.3f} ms "
+        f"({k2_ms / busy * 100:.1f}% of device time, {k2_ms / L:.3f} ms a call)")
+    step_ms, plain_step_ms = time_engine_step(dev, cfg, params, B=B, steps=15)
+    busy, launches, (k1_ms,) = profile_steps(dev, cfg, params, B=B)
+    log(f"[timing] full-width {cfg.name} decode step B={B} (cache max_len 512, "
+        f"[{B},1,{cfg.frontend_dim}] embeddings, [3,{B}] positions): {step_ms:.3f} "
+        f"ms with K1, {plain_step_ms:.3f} ms with the plain attention; device busy "
+        f"{busy:.3f} ms a step ({busy / step_ms * 100:.1f}%, idle "
+        f"{100 - busy / step_ms * 100:.1f}%), {launches:.0f} kernel launches a step, "
+        f"flash_decode {k1_ms:.3f} ms ({k1_ms / busy * 100:.1f}% of device time)")
+    log(f"[vlm] peak device memory of the {cfg.name} phase: "
+        f"{gb(torch.cuda.max_memory_allocated())}; phase time "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"fwd_k2": k2, "dec_k1": k1, "attn_err": attn_err, "dec_err": dec_err,
+            "rows": rows, "k2_share": k2_share}
+
+
 def card() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -2836,17 +3096,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hybrid = phase_hybrid(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm = phase_vlm(dev, flush)
     log(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
 
     k1_paths = {"smollm-360m serve": serve["launches"],
                 "smollm-360m multi-process serve": multiproc["launches"],
                 "deepseek-moe-16b serve": moe["serve_k1"],
                 "recurrentgemma-9b serve": hybrid["serve_k1"],
-                "recurrentgemma-9b decode": hybrid["dec_k1"]}
+                "recurrentgemma-9b decode": hybrid["dec_k1"],
+                "qwen2-vl-7b decode": vlm["dec_k1"]}
     k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"],
-                "recurrentgemma-9b forward": hybrid["fwd_k2"]}
+                "recurrentgemma-9b forward": hybrid["fwd_k2"],
+                "qwen2-vl-7b forward": vlm["fwd_k2"]}
     k2_share.update({"deepseek-moe-16b forward": moe["k2_share"],
-                     "recurrentgemma-9b forward": hybrid["k2_share"]})
+                     "recurrentgemma-9b forward": hybrid["k2_share"],
+                     "qwen2-vl-7b forward": vlm["k2_share"]})
     k3_paths = {"deepseek-moe-16b serve": moe["serve_k3"],
                 "deepseek-moe-16b forward": moe["fwd_k3"]}
     kernels = [{
@@ -2859,6 +3125,7 @@ def main() -> int:
         "shape": serve_row["shape"], "long": long_row,
         "recurrentgemma_prompt": hybrid["rows"]["decode_prompt"],
         "recurrentgemma_ring": hybrid["rows"]["decode_ring"],
+        "qwen2_vl": vlm["rows"]["decode"],
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": sum(k2_paths.values()),
@@ -2867,7 +3134,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "planted_fault_elements_over": flash_planted, "tma_share_by_path": k2_share,
         "hubert": rows["hubert"], "long": rows["long"], "deepseek": rows["deepseek"],
-        "recurrentgemma": hybrid["rows"]["flash"],
+        "recurrentgemma": hybrid["rows"]["flash"], "qwen2_vl": vlm["rows"]["flash"],
     }, {
         "name": "moe_gmm", "route": "cuda", "source": GMM_SOURCE,
         "replaces": GMM_REPLACES, "launches": sum(k3_paths.values()),

@@ -2,8 +2,11 @@
 a fresh cache with tokens and positions.
 
 Batch layout, as in ``repro/launch/inputs.py``:
-  prefill: {tokens [B,S] int32 | embeds [B,S,Din], positions [B,S] int32}
+  prefill: {tokens [B,S] int32 | embeds [B,S,Din],
+            positions [B,S] int32 (or [3,B,S] for M-RoPE)}
   train:   the same plus labels [B,S] int32
+  decode:  (cache, tokens [B] int32 | embeds [B,1,Din],
+            positions [B] int32 (or [3,B] for M-RoPE))
 """
 
 from __future__ import annotations
@@ -20,11 +23,8 @@ from repro_torch.models.registry import build_model
 def make_batch(cfg, B: int, S: int, generator: torch.Generator, device, *,
                with_labels: bool = True) -> dict:
     """Random tokens (or frame/patch embeddings in the compute dtype) and
-    positions ``arange(S)`` for every row, on ``device``; ``generator``
-    lives on ``device``."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE position streams arrive "
-                                  f"with the VLM slice (ROADMAP M9)")
+    positions ``arange(S)`` for every row (under M-RoPE three equal
+    streams of it), on ``device``; ``generator`` lives on ``device``."""
     batch: dict[str, Any] = {}
     if cfg.frontend == "token":
         batch["tokens"] = torch.randint(0, cfg.vocab, (B, S), generator=generator,
@@ -34,8 +34,8 @@ def make_batch(cfg, B: int, S: int, generator: torch.Generator, device, *,
         batch["embeds"] = torch.randn(
             (B, S, d_in), generator=generator, device=device,
         ).to(torch_dtype(cfg.compute_dtype))
-    batch["positions"] = torch.arange(S, dtype=torch.int32,
-                                      device=device).expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    batch["positions"] = pos if cfg.mrope_sections is None else pos.expand(3, B, S)
     if with_labels:
         batch["labels"] = torch.randint(0, cfg.vocab, (B, S), generator=generator,
                                         device=device, dtype=torch.int32)
@@ -44,20 +44,26 @@ def make_batch(cfg, B: int, S: int, generator: torch.Generator, device, *,
 
 def make_decode_inputs(cfg, B: int, max_len: int, generator: torch.Generator,
                        device, *, pos: int = 0):
-    """(cache, tokens [B] int32, positions [B] int32) on ``device``; the
-    cache is empty (attention: k, v zeros, pos -1; mamba2: conv buffer and
-    state zeros; hybrid: each local-attention layer a ring of
-    ``min(local_window, max_len)`` slots, each recurrent block an fp32
-    state and a conv buffer of zeros). ``generator`` lives on ``device``."""
-    if cfg.frontend != "token" or cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: decode inputs for the "
-                                  f"{cfg.family} family (ROADMAP M9)")
+    """(cache, tokens [B] int32 or embeddings [B,1,Din] in the compute
+    dtype for a non-token frontend, positions [B] int32 or [3,B] under
+    M-RoPE) on ``device``; the cache is empty (attention: k, v zeros, pos
+    -1; mamba2: conv buffer and state zeros; hybrid: each local-attention
+    layer a ring of ``min(local_window, max_len)`` slots, each recurrent
+    block an fp32 state and a conv buffer of zeros). ``generator`` lives on
+    ``device``."""
     model = build_model(cfg)
     cache = init_tree(generator, model.cache_specs(B, max_len),
                       cfg.param_dtype, device)
-    tok = torch.randint(0, cfg.vocab, (B,), generator=generator, device=device,
-                        dtype=torch.int32)
+    if cfg.frontend == "token":
+        tok = torch.randint(0, cfg.vocab, (B,), generator=generator,
+                            device=device, dtype=torch.int32)
+    else:
+        d_in = cfg.frontend_dim or cfg.d_model
+        tok = torch.randn((B, 1, d_in), generator=generator,
+                          device=device).to(torch_dtype(cfg.compute_dtype))
     p = torch.full((B,), pos, dtype=torch.int32, device=device)
+    if cfg.mrope_sections is not None:
+        p = p.expand(3, B)
     return cache, tok, p
 
 

@@ -184,14 +184,18 @@ def cache_specs(cfg, batch: int, max_len: int, *, window: Optional[int]) -> dict
 def attention_decode(params: dict, cfg, sharder, x: torch.Tensor,
                      cache: dict, positions: torch.Tensor, *,
                      window: Optional[int] = None) -> tuple[torch.Tensor, dict]:
-    """x [B,1,d]; positions [B] int32 absolute position of the new token.
+    """x [B,1,d]; positions [B] int32 absolute position of the new token (or
+    [3,B] M-RoPE position streams for the VLM: the temporal stream [0]
+    drives the cache slot, the stored position and the mask).
 
     Writes the token into slot ``pos % W`` of ``cache`` (a ring; for full
     attention W is max_len, so the ring is a linear cache) and returns
     (y [B,1,d], cache)."""
-    if positions.ndim != 1:
-        raise NotImplementedError("M-RoPE decode arrives with the VLM slice "
-                                  "(ROADMAP M9)")
+    if positions.ndim == 2:  # [3, B] M-RoPE streams
+        rope_pos = positions[:, :, None]  # [3,B,1]
+        positions = positions[0]
+    else:
+        rope_pos = positions[:, None]     # [B,1]
     dt = x.dtype
     B = x.shape[0]
     W = cache["k"].shape[1]
@@ -202,7 +206,6 @@ def attention_decode(params: dict, cfg, sharder, x: torch.Tensor,
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    rope_pos = positions[:, None]
     q = apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
 
@@ -212,8 +215,9 @@ def attention_decode(params: dict, cfg, sharder, x: torch.Tensor,
     cache["v"][bidx, slots] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][bidx, slots] = positions.to(torch.int32)
 
+    # a [3,B] tensor's stream 0 may be strided: K1 takes a contiguous q_pos
     o = kops.flash_decode(q[:, 0].contiguous(), cache["k"], cache["v"],
-                          cache["pos"], positions.to(torch.int32),
+                          cache["pos"], positions.to(torch.int32).contiguous(),
                           window=window)                        # [B,H,D]
     y = torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"].to(dt))
     return y, cache

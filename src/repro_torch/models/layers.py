@@ -49,7 +49,7 @@ def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# RoPE (split halves, not interleaved)
+# RoPE (split halves, not interleaved; + M-RoPE for qwen2-vl)
 # --------------------------------------------------------------------------- #
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
@@ -58,17 +58,27 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(
     x: torch.Tensor,           # [B, S, H, D]
-    positions: torch.Tensor,   # [B, S] int
+    positions: torch.Tensor,   # [B, S] int  or  [3, B, S] for M-RoPE
     theta: float,
     mrope_sections: Optional[tuple[int, ...]] = None,
 ) -> torch.Tensor:
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE arrives with the VLM slice (ROADMAP M9)")
-    if positions.ndim == 3:
-        positions = positions[0]
+    """Rotary embedding. With ``mrope_sections`` (in *pair* units summing to
+    D/2), frequency band j is driven by position stream i, the (temporal,
+    h, w) stream whose contiguous section holds j: qwen2-vl's multimodal
+    RoPE in the JAX package's layout (not Hugging Face's interleaved one)."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)                 # [D/2]
-    angles = positions[..., None].float() * freqs                  # [B,S,D/2]
+    if mrope_sections is None:
+        if positions.ndim == 3:
+            positions = positions[0]
+        angles = positions[..., None].float() * freqs              # [B,S,D/2]
+    else:
+        assert positions.ndim == 3, "M-RoPE needs [3, B, S] positions"
+        assert sum(mrope_sections) == d // 2, (mrope_sections, d)
+        pos_per_freq = torch.cat(
+            [positions[i][..., None].float().expand(*positions.shape[1:], n)
+             for i, n in enumerate(mrope_sections)], dim=-1)       # [B,S,D/2]
+        angles = pos_per_freq * freqs
     cos = torch.cos(angles)[:, :, None, :]                         # [B,S,1,D/2]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

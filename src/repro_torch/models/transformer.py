@@ -1,17 +1,18 @@
-"""The LM, dense, audio, MoE, SSM and hybrid families: parameter and cache
-specs, the full-sequence forward (prefill) and the decode step.
+"""The LM, dense, audio, VLM, MoE, SSM and hybrid families: parameter and
+cache specs, the full-sequence forward (prefill) and the decode step.
 
 Port of ``repro/models/transformer.py``. Stacked ``[L, ...]`` parameters
 and caches keep the JAX tree's keys; the layers run in a Python loop over
 views of the stacks in place of ``lax.scan``, and the decode step writes
 the cache in place. The audio family (hubert) is the dense block run
-bidirectionally behind a frame-embedding frontend, with no decode. The
-MoE family (deepseek) replaces the dense FFN with ``moe.moe_block`` after
+bidirectionally behind a frame-embedding frontend, with no decode; the
+VLM family (qwen2-vl) is the dense block behind a patch-embedding
+frontend, with M-RoPE over [3,B,S] position streams (and [B,1,Din]
+embeddings with [3,B] positions in the decode step). The MoE family (deepseek) replaces the dense FFN with ``moe.moe_block`` after
 ``first_k_dense`` dense layers; the SSM family (mamba2) is a stack of
 ``mamba2`` mixers; the hybrid family (recurrentgemma) is the Griffin
 pattern, stacked superblocks of (rec, rec, local attention) and a tail of
-recurrent blocks keyed "0", "1", .... The VLM family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+recurrent blocks keyed "0", "1", ....
 """
 
 from __future__ import annotations
@@ -115,14 +116,13 @@ def rec_block_fwd(p, cfg, sharder, x):
 
 
 #: families whose layers are the dense block
-_DENSE = ("dense", "audio")
-#: families this port runs
+_DENSE = ("dense", "vlm", "audio")
+#: families this port runs: every family the JAX package defines
 _PORTED = (*_DENSE, "moe", "ssm", "hybrid")
 
 
-def _unported(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP M9)")
+def _unknown(cfg) -> ValueError:
+    return ValueError(f"{cfg.name}: unknown family {cfg.family}")
 
 
 class LM:
@@ -133,7 +133,7 @@ class LM:
     def param_specs(self) -> dict:
         cfg = self.cfg
         if cfg.family not in _PORTED:
-            raise _unported(cfg)
+            raise _unknown(cfg)
         specs: dict[str, Any] = {}
         if cfg.frontend == "token":
             specs["embed"] = L.embed_specs(cfg.vocab, cfg.d_model)
@@ -205,8 +205,6 @@ class LM:
         so this forward-only port has none (``torch.utils.checkpoint``
         arrives with training, ROADMAP M10)."""
         cfg = self.cfg
-        if cfg.family not in _PORTED:
-            raise _unported(cfg)
         x = self._embed_in(params, batch, sharder)
         positions = batch["positions"]
         mode = "bidir" if cfg.encoder_only else "causal"
@@ -263,8 +261,8 @@ class LM:
             if cfg.first_k_dense:
                 out["dense_layers"] = _stack_specs(per, cfg.first_k_dense)
             return out
-        if cfg.family != "dense":
-            raise _unported(cfg)
+        if cfg.family not in ("dense", "vlm"):
+            raise _unknown(cfg)
         per = attn.cache_specs(cfg, batch, max_len, window=cfg.swa_window)
         return {"layers": _stack_specs(per, cfg.n_layers)}
 
@@ -302,15 +300,17 @@ class LM:
         return count(self.cache_specs(1, 1))
 
     def decode_step(self, params, cache, tokens, positions, sharder):
-        """One token for every row. tokens [B]; positions [B] int32.
+        """One token for every row. tokens [B] (or embeds [B,1,Din] for a
+        non-token frontend); positions [B] int32 (or [3,B] M-RoPE streams).
         Returns (logits [B,V], cache), the cache updated in place."""
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-        if cfg.family not in _PORTED:
-            raise _unported(cfg)
-        x = L.embed(tokens[:, None], params["embed"]["tok"],
-                    torch_dtype(cfg.compute_dtype))
+        cdt = torch_dtype(cfg.compute_dtype)
+        if cfg.frontend == "token":
+            x = L.embed(tokens[:, None], params["embed"]["tok"], cdt)
+        else:
+            x = L.frontend_proj(tokens.to(cdt), params["frontend"]["proj"])
         if cfg.family == "ssm":
             for i in range(cfg.n_layers):
                 p = tree_index(params["layers"], i)
@@ -342,8 +342,12 @@ class LM:
 
     def _attn_decode_block(self, p, c, x, positions, sharder, *, window=None):
         """``window`` None means the config's ``swa_window`` (JAX
-        transformer.py:414-416); the hybrid passes its ``local_window``."""
+        transformer.py:414-416); the hybrid passes its ``local_window``.
+        [3,B] positions reach the attention whole under M-RoPE, else as
+        their temporal stream."""
         cfg = self.cfg
+        if positions.ndim == 2 and cfg.mrope_sections is None:
+            positions = positions[0]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         h, _ = attn.attention_decode(
             p["attn"], cfg, sharder, h, c, positions,

@@ -17,7 +17,11 @@ Differences from the JAX engine, all in how the device is driven:
 * the per-step device wait is one synchronising copy of the argmax tokens
   to the host;
 * weights are cast to the compute dtype once, at construction;
-* decode attention runs the hand-written flash-decode kernel on CUDA.
+* decode attention runs the hand-written flash-decode kernel on CUDA;
+* a model whose frontend is not ``token`` (qwen2-vl's patches) is refused
+  at construction: the engine feeds token ids to the decode step, which
+  such a model reads as embeddings (the JAX engine fails inside its
+  worker).
 """
 
 from __future__ import annotations
@@ -84,6 +88,11 @@ class InferenceServer:
                  nice: int = 0, share: Optional[float] = None,
                  policy: Optional[Policy] = None, auto_ckpt: bool = True,
                  device=None, params: Optional[dict] = None):
+        if cfg.frontend != "token":
+            raise ValueError(
+                f"{cfg.name}: the engine serves token ids, and this model's "
+                f"{cfg.frontend} frontend takes precomputed embeddings; run "
+                f"its decode step (make_serve_step) on [B,1,Din] embeddings")
         self.name = name
         self.cfg = cfg
         self.usf = usf
@@ -207,6 +216,8 @@ class InferenceServer:
             # one engine step: each active slot advances one token
             toks = torch.from_numpy(cur.astype(np.int32)).to(dev)
             p = torch.from_numpy(pos.astype(np.int32)).to(dev)
+            if cfg.mrope_sections is not None:
+                p = p.expand(3, B)  # M-RoPE: three equal position streams
             logits, cache = self._step(self.params, cache, toks, p)
             # the device wait: one synchronising copy of the next tokens
             nxt = logits.argmax(dim=-1).cpu().numpy()

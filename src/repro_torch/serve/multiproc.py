@@ -49,7 +49,13 @@ Differences from the JAX module, all in how the device is driven:
   counts of the port's kernel wrappers in the child, both cumulative since
   the child started, and ``handle`` returns them by server (``steps``,
   ``launches``), so that a caller can see each child's decode go through
-  the kernels.
+  the kernels;
+* ``result()`` reads the response queue only once ``_await_ready`` has
+  taken the child's ready message (a per-process ready event, cleared at
+  each spawn). In the JAX module a respawned child is alive before it is
+  ready, so ``handle`` targets it while the supervisor waits for its ready
+  message on the same queue, and ``handle`` may take that message for the
+  response.
 """
 
 from __future__ import annotations
@@ -219,12 +225,16 @@ class ServerProcess:
         self.failed = False
         #: monotonic stamps of observed deaths (the breaker's window)
         self.fail_times: list = []
+        #: set once _await_ready has taken the current child's ready
+        #: message; result() reads no response before it
+        self._ready = threading.Event()
 
     def start(self, *, ready_timeout: float = 180.0) -> "ServerProcess":
         self._spawn()
         return self._await_ready(ready_timeout)
 
     def _spawn(self) -> None:
+        self._ready.clear()
         self._proc = _CTX.Process(
             target=_server_main,
             args=(self.spec, self._req_q, self._resp_q),
@@ -235,6 +245,7 @@ class ServerProcess:
         msg = self._next_resp(ready_timeout)
         if not msg.get("ready"):
             raise ServerProcessError(f"{self.name} failed to start: {msg}")
+        self._ready.set()
         return self
 
     def restart(self, *, ready_timeout: float = 180.0) -> "ServerProcess":
@@ -264,12 +275,15 @@ class ServerProcess:
         return self._rid
 
     def result(self, timeout: Optional[float] = None) -> dict:
-        """Next response (FIFO — the server pump is serial)."""
-        msg = self._next_resp(timeout)
+        """Next response (FIFO — the server pump is serial), read once the
+        child is ready: a respawned child is alive, and so a target, while
+        the supervisor still waits for its ready message on this queue."""
+        msg = self._next_resp(timeout, after_ready=True)
         self.served += 1
         return msg
 
-    def _next_resp(self, timeout: Optional[float]) -> dict:
+    def _next_resp(self, timeout: Optional[float], *,
+                   after_ready: bool = False) -> dict:
         deadline = None if timeout is None else time.monotonic() + timeout
         gen = self.generation
         resp_q = self._resp_q
@@ -277,6 +291,8 @@ class ServerProcess:
             step = 0.5 if deadline is None else max(
                 0.0, min(0.5, deadline - time.monotonic()))
             try:
+                if after_ready and not self._ready.wait(step):
+                    raise queue_mod.Empty
                 msg = resp_q.get(timeout=step)
             except queue_mod.Empty:
                 if self.generation != gen:

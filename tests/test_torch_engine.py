@@ -1,6 +1,7 @@
 """The port's serving engine under the port's USF runtime, and its parity
 with the JAX engine on the same weights."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -94,13 +95,22 @@ def _serve(usf, server, prompts, max_new, request_cls, job_cls):
     return out
 
 
+def _smoke(get, arch):
+    """A smoke config; "qwen2_vl_7b token" is qwen2-vl's with a token
+    frontend: its M-RoPE takes the (3, B) positions that the engines
+    broadcast from the step's positions."""
+    name, _, frontend = arch.partition(" ")
+    cfg = get(name)
+    return dataclasses.replace(cfg, frontend=frontend) if frontend else cfg
+
+
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_110b",
-                                  "deepseek_moe_16b"])
+                                  "deepseek_moe_16b", "qwen2_vl_7b token"])
 def test_engine_matches_jax_engine_token_for_token(arch):
     """Same carried weights, same requests (more than the batch holds, so
     slots are reused): the greedy outputs are identical."""
     rng = np.random.default_rng(4)
-    jcfg, tcfg = j_get_smoke(arch), get_smoke(arch)
+    jcfg, tcfg = _smoke(j_get_smoke, arch), _smoke(get_smoke, arch)
     prompts = [rng.integers(0, jcfg.vocab, size=n).tolist() for n in (3, 6, 1, 4)]
     params = jax.tree_util.tree_map(np.asarray, j_init_tree(
         jax.random.PRNGKey(0), j_build_model(jcfg).param_specs(),
@@ -124,6 +134,18 @@ def test_engine_matches_jax_engine_token_for_token(arch):
         usf.shutdown(timeout=5.0)
     assert got == want
     assert all(len(o) == 5 for o in got)
+
+
+def test_server_refuses_a_patch_frontend():
+    """The engine feeds token ids to the decode step; qwen2-vl's decode
+    step takes [B,1,Din] patch embeddings, so the server refuses the
+    model when it is built, not inside its worker."""
+    usf = UsfRuntime(Topology(1, 1), SchedCoop())
+    try:
+        with pytest.raises(ValueError, match="patch frontend"):
+            InferenceServer("srv", get_smoke("qwen2_vl_7b"), usf, device="cpu")
+    finally:
+        usf.shutdown(timeout=5.0)
 
 
 def test_server_without_a_device_needs_cuda():

@@ -65,12 +65,6 @@ def test_apply_rope(dtype, D, theta):
            TL.apply_rope(tx, torch.from_numpy(pos), theta), dtype)
 
 
-def test_mrope_waits_for_the_vlm_slice():
-    with pytest.raises(NotImplementedError):
-        TL.apply_rope(torch.zeros(1, 1, 1, 8), torch.zeros(3, 1, 1), 1e4,
-                      (2, 1, 1))
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_mlp(dtype, act):

@@ -3,7 +3,9 @@ twins of tests/test_multiproc_serving.py's cases with ``device="cpu"``, a
 child's greedy tokens against an in-process server on the same seed, and a
 child that finds no card. Two server processes at most are alive at once."""
 
+import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from repro_torch.configs.base import get_smoke
 from repro_torch.core.policies import SchedCoop
 from repro_torch.core.threads import UsfRuntime
 from repro_torch.core.topology import Topology
+from repro_torch.serve import multiproc
 from repro_torch.serve.engine import InferenceServer, Request
 from repro_torch.serve.multiproc import (MultiProcessGateway, ServerProcess,
                                          ServerProcessError)
@@ -123,6 +126,95 @@ def test_supervisor_restarts_dead_server_then_breaker_benches_crashloop():
         assert list(rec["outputs"]) == ["srv-b"]  # the survivor serves
     finally:
         gw.stop()
+
+
+class _AliveChild:
+    """Stands in for a spawned child: started, alive, never exits."""
+
+    pid = 0
+
+    def __init__(self, **_):
+        pass
+
+    def start(self):
+        pass
+
+    def is_alive(self):
+        return True
+
+    def join(self, timeout=None):
+        pass
+
+
+class _MainReaderFirst:
+    """A response queue that hands a message to the main thread whenever it
+    is among the readers. Which of two readers of one queue gets a message
+    is not specified; this order is the one in which a caller of
+    ``result()`` takes a respawned child's ready message from the
+    supervisor."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._items = []
+        self._readers = []
+
+    def put(self, *msgs, wait_for_main=0.0):
+        """Put ``msgs`` at once, after waiting up to ``wait_for_main``
+        seconds for the main thread to be reading."""
+        main = threading.main_thread()
+        with self._cv:
+            self._cv.wait_for(lambda: main in self._readers, wait_for_main)
+            self._items.extend(msgs)
+            self._cv.notify_all()
+
+    def get(self, timeout=None):
+        me, main = threading.current_thread(), threading.main_thread()
+
+        def mine():
+            return bool(self._items) and (me is main or main not in self._readers)
+
+        with self._cv:
+            self._readers.append(me)
+            self._cv.notify_all()
+            try:
+                if not self._cv.wait_for(mine, timeout):
+                    raise multiproc.queue_mod.Empty
+                return self._items.pop(0)
+            finally:
+                self._readers.remove(me)
+
+
+def test_result_waits_for_a_respawned_child_to_be_ready(monkeypatch):
+    """The supervisor's restart waits for the new child's ready message
+    while the child already counts as alive, so the gateway targets it and
+    its caller reads the same queue: result() must leave the ready message
+    to _await_ready and return the response that follows it."""
+    monkeypatch.setattr(multiproc, "_CTX", types.SimpleNamespace(
+        Process=_AliveChild, Queue=_MainReaderFirst))
+    s = ServerProcess("srv", "smollm_360m", device="cpu")
+    restarted = []
+
+    def supervisor():
+        try:
+            restarted.append(s.restart(ready_timeout=10.0))
+        except Exception as e:  # noqa: BLE001 - asserted below
+            restarted.append(e)
+
+    sup = threading.Thread(target=supervisor)
+    sup.start()
+    assert _wait_until(s.alive, 5.0)
+    response = {"rid": 1, "output": [3], "latency": 0.1}
+    feeder = threading.Thread(target=lambda: s._resp_q.put(
+        {"ready": True, "pid": 0, "device": "cpu"}, response, wait_for_main=1.0))
+    feeder.start()
+    try:
+        got = s.result(timeout=10.0)
+    finally:
+        feeder.join(10.0)
+        sup.join(10.0)
+    assert got == response
+    assert restarted == [s]  # _await_ready took the ready message
+    assert s.restarts == 1 and s.served == 1
 
 
 def test_inflight_request_retried_once_on_survivor():

@@ -263,11 +263,6 @@ def test_make_batch_layout(arch):
                                       with_labels=False)
 
 
-def test_make_batch_refuses_mrope_until_the_vlm_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_batch(t_get_smoke("qwen2_vl_7b"), 1, 4, torch.Generator(), "cpu")
-
-
 def test_weights_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

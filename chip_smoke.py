@@ -199,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1564,15 +1565,6 @@ def plain_gmm(x, w):
     return ref.moe_gmm_ref(x, w)
 
 
-def plain_ssd(x, dt, A, Bm, Cm, chunk=256):
-    """The model's chunked algebra in place of ops.ssd_scan: the plain
-    yardstick of K4 in a forward (the kernel's own plain version, the O(S)
-    recurrence ref.ssd_ref, is checked at every call)."""
-    from repro_torch.models.mamba2 import ssd_chunked
-
-    return ssd_chunked(x, dt, A, Bm, Cm, chunk)
-
-
 def plain_moe():
     """Every kernel of the MoE path (K1, K2, K3) as its plain version."""
     return plain_ops(flash_decode=plain_decode, flash_attention=plain_flash,
@@ -1580,7 +1572,12 @@ def plain_moe():
 
 
 def plain_ssm():
-    return plain_ops(ssd_scan=plain_ssd)
+    """The model's chunked algebra in place of K4 (``ops.PLAIN``): the plain
+    yardstick of K4 in a forward (the kernel's own plain version, the O(S)
+    recurrence ref.ssd_ref, is checked at every call)."""
+    from repro_torch.kernels import ops
+
+    return plain_ops(ssd_scan=ops.plain_ssd_scan)
 
 
 GMM_CASES = [
@@ -1900,7 +1897,7 @@ def time_ssd_shape(dev, flush, B, S, H, P, N, Q):
            "fwd_ms": time_ms(lambda: ssd_scan.launch(x, dt, A, Bm, Cm, Q, "fwd"),
                              flush, 20),
            "plain_ms": time_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm), flush, 2, warmup=1),
-           "chunked_ms": time_ms(lambda: plain_ssd(x, dt, A, Bm, Cm, Q), flush, 5,
+           "chunked_ms": time_ms(lambda: ops.plain_ssd_scan(x, dt, A, Bm, Cm, Q), flush, 5,
                                  warmup=1),
            "library_ms": None}
     (row["bound_ms"], row["bound_by"]), flops, moved = ssd_bound(B, S, H, P, N, Q, 2)
@@ -2985,6 +2982,378 @@ def phase_vlm(dev, flush, *, B=4, S=2048, steps=64, max_len=512):
             "rows": rows, "k2_share": k2_share}
 
 
+# --------------------------------------------------------------------------- #
+# gradients through the kernels (phase 12) and the Trainer (phase 13)
+# --------------------------------------------------------------------------- #
+#: phase 12's bound on max |g_kernel - g_plain| of a gradient leaf, as a
+#: share of the leaf's largest |g_plain| (PERF.md §6): fp32 ten
+#: times the kernels' fp32 TOL (two layers to carry a forward difference
+#: through), bf16 the forward's own limit on logits, 2e-2 of the largest
+GRAD_BOUND = {"float32": 1e-3, "bfloat16": 2e-2}
+#: phase 12's paths: config and the layers it keeps (full width, cut depth:
+#: deepseek its dense layer and one MoE layer, recurrentgemma one
+#: superblock and one tail block)
+GRAD_PATHS = (("smollm_360m", 2), ("deepseek_moe_16b", 2), ("mamba2_2_7b", 2),
+              ("recurrentgemma_9b", 4))
+
+
+def kernel_counters() -> dict:
+    """The launch counter of each kernel a forward can take (K2–K5)."""
+    from repro_torch.kernels import flash_attention, moe_gmm, rglru_scan, ssd_scan
+
+    return {"flash_attention": flash_attention.flash_attention_fwd,
+            "moe_gmm": moe_gmm.moe_gmm, "ssd_scan": ssd_scan.ssd_scan,
+            "rglru_scan": rglru_scan.rglru_scan}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def forward_launches(cfg) -> dict:
+    """Each kernel's launches in one forward: K2 one an attention layer, K3
+    three an MoE layer, K4 one a mamba2 layer, K5 one a recurrent block."""
+    want = dict.fromkeys(kernel_counters(), 0)
+    if cfg.family == "moe":
+        want["flash_attention"] = cfg.n_layers
+        want["moe_gmm"] = 3 * (cfg.n_layers - cfg.first_k_dense)
+    elif cfg.family == "ssm":
+        want["ssd_scan"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        want["flash_attention"] = cfg.n_layers // 3
+        want["rglru_scan"] = cfg.n_layers - cfg.n_layers // 3
+    else:
+        want["flash_attention"] = cfg.n_layers
+    return want
+
+
+def named_leaves(tree):
+    """[(path, leaf)] in sorted-key order (``tree_leaves``' order), the
+    paths as checkpoints name them."""
+    from repro_torch.ckpt.checkpoint import _flatten
+
+    return list(_flatten(tree).items())
+
+
+def loss_grads(model, params, batch):
+    """The training loss (``train.step._loss_fn``) and autograd's gradient
+    of every leaf of ``params`` (None where the loss does not reach it)."""
+    import torch
+
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import _loss_fn
+
+    leaves = [p.requires_grad_(True) for _, p in named_leaves(params)]
+    loss, _ = _loss_fn(model, Sharder(None), params, batch)
+    return loss.item(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def grads_held(names, got, want, bound):
+    """(the leaves that fail, the worst max|g - g_plain| / (bound ·
+    max|g_plain|), its leaf): a leaf fails with no gradient, a non-finite
+    or an all-zero one, or one off the plain path's by more than the
+    bound."""
+    import torch
+
+    bad, worst, where = [], 0.0, ""
+    for name, g, w in zip(names, got, want):
+        if g is None or not bool(torch.isfinite(g).all()) or not bool(g.ne(0).any()):
+            bad.append(name)
+            continue
+        ratio = ((g.float() - w.float()).abs().max()
+                 / (bound * w.float().abs().max())).item()
+        if ratio > worst:
+            worst, where = ratio, name
+        if not ratio <= 1:
+            bad.append(name)
+    return bad, worst, where
+
+
+def detached_k2(q, k, v, *, causal=True, window=None):
+    """K2 as the port called it before its autograd.Function: the kernel's
+    output with no gradient (phase 12's planted fault)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    with torch.no_grad():
+        return ops._flash(q, k, v, causal, window)
+
+
+def phase_grads(dev, *, B=2, S=512):
+    """Loss and backward at full width, cut depth, through the kernels and
+    then through their plain paths (``ops.PLAIN``), in fp32 and in the
+    configs' bf16: every leaf's gradient held to the plain path's
+    (``GRAD_BOUND``), each kernel's launches = its forward's x 2 (full
+    remat), and K2's old detached output planted, which must fail on wq,
+    wk and wv. Returns the launches by path and the worst ratios."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import conditioned, make_batch
+    from repro_torch.models.base import init_tree, param_count
+    from repro_torch.models.registry import build_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    by_path, worst_by_path, ok = {name: {} for name in kernel_counters()}, {}, True
+    for arch, n_layers in GRAD_PATHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                                      compute_dtype=dtype)
+            model = build_model(cfg)
+            params = conditioned(cfg, init_tree(
+                torch.Generator(device=dev).manual_seed(0), model.param_specs(),
+                cfg.param_dtype, dev))
+            batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1),
+                               dev)
+            names = [n for n, _ in named_leaves(params)]
+            chosen = []
+            torch.cuda.synchronize()
+            zero_counts()
+            with routing(record=chosen):
+                loss_k, got = loss_grads(model, params, batch)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            with plain_ops(**ops.PLAIN), routing(replay=chosen):
+                loss_p, want = loss_grads(model, params, batch)
+            torch.cuda.synchronize()
+            plain_counts = read_counts()
+            fwd = forward_launches(cfg)
+            bad, worst, where = grads_held(names, got, want, GRAD_BOUND[dtype])
+            launches_ok = (counts == {k: 2 * n for k, n in fwd.items()}
+                           and plain_counts == counts)
+            path = f"{cfg.name} {n_layers}L gradients {dtype}"
+            good = not bad and launches_ok and abs(loss_k - loss_p) <= 2e-2 * abs(loss_p)
+            log(f"[grads] {path} ({param_count(model.param_specs()) / 1e9:.2f} B params, "
+                f"B={B} S={S}, remat {cfg.remat}): loss {loss_k:.6f} with the kernels, "
+                f"{loss_p:.6f} plain; {len(names)} leaves, every gradient present, "
+                f"finite and nonzero {'yes' if not bad else 'NO: ' + ', '.join(bad)}; "
+                f"worst max|g - g_plain| {worst:.3f} of the bound ({GRAD_BOUND[dtype]:g} "
+                f"x the leaf's largest |g_plain|) at {where}; launches "
+                f"{ {k: v for k, v in counts.items() if v} } (want 2 x the forward's "
+                f"{ {k: v for k, v in fwd.items() if v} }; none more in the plain run) "
+                f"{'ok' if good else 'FAIL'}")
+            ok &= good
+            worst_by_path[path] = worst
+            for name, n in counts.items():
+                if n:
+                    by_path[name][path] = n
+
+            if arch == "smollm_360m" and dtype == "float32":
+                with plain_ops(flash_attention=detached_k2):
+                    _, planted = loss_grads(model, params, batch)
+                caught, _, _ = grads_held(names, planted, want, GRAD_BOUND[dtype])
+                need = {f"layers/attn/{w}" for w in ("wq", "wk", "wv")}
+                good = need <= set(caught)
+                log(f"[grads] planted fault, K2's output detached (the port before "
+                    f"its autograd.Function) on {path}: the check fails on "
+                    f"{', '.join(caught)} (must include {', '.join(sorted(need))}) "
+                    f"{'ok' if good else 'FAIL'}")
+                ok &= good
+                del planted
+            del params, batch, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"[grads] phase time {time.perf_counter() - t_phase:.1f} s; peak device "
+        f"memory {gb(torch.cuda.max_memory_allocated())}")
+    if not ok:
+        raise AssertionError("the gradients through the kernels failed their checks")
+    return {"by_path": by_path, "worst": worst_by_path}
+
+
+def params_apart(got, want, lr_sum, tight_lr):
+    """(max |got - want|, the share of elements off by more than 1e-5
+    relative + 1e-3 x ``tight_lr``) over two param trees."""
+    worst, off, n = 0.0, 0, 0
+    for (_, a), (_, b) in zip(named_leaves(got), named_leaves(want)):
+        d = (a.detach().float() - b.detach().float()).abs()
+        worst = max(worst, d.max().item())
+        off += int((d > 1e-5 * b.detach().float().abs() + 1e-3 * tight_lr).sum())
+        n += d.numel()
+    return worst, off / n
+
+
+def phase_train(dev, flush, *, steps=10, global_batch=8, seq_len=2048,
+                microbatches=2, stop_at=6):
+    """Full-width, full-depth smollm-360m trained by the port's Trainer on
+    the synthetic stream: an uninterrupted run, a run that stops at
+    ``stop_at`` (a checkpoint there), and one that resumes it to ``steps``;
+    checks, then step time, tokens/s, the model-flops share, a profile of
+    one step, the plain attention backward's share and checkpoint times."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_tensors
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models.base import init_tree, param_count
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("smollm_360m")
+    kw = dict(steps=steps, global_batch=global_batch, seq_len=seq_len,
+              microbatches=microbatches, ckpt_every=stop_at, keep=1, warmup=2,
+              peak_lr=1e-3, seed=0)
+    tokens = global_batch * seq_len
+    k2_step = cfg.n_layers * 2 * microbatches  # a forward and a remat recompute
+    n_params = param_count(build_model(cfg).param_specs())
+    log(f"[train] {cfg.name}: {cfg.n_layers}L d_model {cfg.d_model}, "
+        f"{n_params / 1e6:.1f} M params ({cfg.param_dtype}, {cfg.compute_dtype} "
+        f"compute, remat {cfg.remat}, {cfg.optimizer}); TrainerConfig({kw}); "
+        f"{tokens} tokens a step in {microbatches} microbatches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ok = True
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for tag, ckpt_dir, resume, stop in (("uninterrupted", None, False, None),
+                                            ("stopped", d, False, stop_at),
+                                            ("resumed", d, True, None)):
+            if tag == "resumed":  # the checkpoint's restore and save, timed
+                target = Trainer(cfg, TrainerConfig(**kw), device=dev).init_state()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                back = restore_checkpoint(d, stop_at, target)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                save_checkpoint(back, d, stop_at, keep=1)
+                save_s = time.perf_counter() - t0
+                del target, back
+            trainer = Trainer(cfg, TrainerConfig(ckpt_dir=ckpt_dir, **kw), device=dev)
+            torch.cuda.synchronize()
+            flash_attention.flash_attention_fwd.launches = 0
+            state = trainer.run(resume=resume, stop_at=stop)
+            torch.cuda.synchronize()
+            k2 = flash_attention.flash_attention_fwd.launches
+            done = len(trainer.metrics_log)
+            good = k2 == k2_step * done and int(state["step"]) == (stop or steps)
+            log(f"[train] {tag} run: steps {trainer.metrics_log[0]['step']}.."
+                f"{trainer.metrics_log[-1]['step']}, losses "
+                f"{[round(m['loss'], 4) for m in trainer.metrics_log]}; K2 launches "
+                f"{k2} (want {cfg.n_layers} layers x 2 (remat) x {microbatches} "
+                f"microbatches x {done} steps = {k2_step * done}) "
+                f"{'ok' if good else 'FAIL'}")
+            ok &= good
+            if tag == "stopped":
+                good = latest_step(d) == stop_at
+                log(f"[train] checkpoint after the stopped run: step {latest_step(d)} "
+                    f"(want {stop_at}) {'ok' if good else 'FAIL'}")
+                ok &= good
+                del state
+            else:
+                runs[tag] = (trainer, state)
+            gc.collect()
+            torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+
+    trainer, state = runs["uninterrupted"]
+    losses = [m["loss"] for m in trainer.metrics_log]
+    good = (all(map(math.isfinite, losses))
+            and statistics.mean(losses[-3:]) < losses[0])
+    log(f"[train] uninterrupted losses finite and the mean of the last 3 "
+        f"({statistics.mean(losses[-3:]):.4f}) below the first ({losses[0]:.4f}) "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    init = init_tree(torch.Generator(device=dev).manual_seed(kw["seed"]),
+                     trainer.model.param_specs(), cfg.param_dtype, dev)
+    moved = {name: a.detach().ne(b).float().mean().item() for (name, a), (_, b)
+             in zip(named_leaves(state["params"]), named_leaves(init))}
+    good = min(moved.values()) > 0
+    least = min(moved, key=moved.get)
+    log(f"[train] every parameter leaf updated by the 10 steps: "
+        f"{sum(v > 0 for v in moved.values())} of {len(moved)} leaves moved; the "
+        f"least, {least}, in {moved[least] * 100:.2f}% of its elements "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    del init
+    lrs = [warmup_cosine(s, peak_lr=kw["peak_lr"], warmup=kw["warmup"],
+                         total=steps).item() for s in range(steps)]
+    worst, share = params_apart(runs["resumed"][1]["params"], state["params"],
+                                sum(lrs), kw["peak_lr"])
+    good = worst <= 2 * sum(lrs) and share < 1e-2
+    log(f"[train] resumed run's params against the uninterrupted run's: max |diff| "
+        f"{worst:.3e} (bound 2 x the sum of the 10 steps' lr, {2 * sum(lrs):.3e}: an "
+        f"update of the other sign every step), {share * 100:.4f}% of elements off by "
+        f"more than 1e-5 relative + 1e-3 x peak lr (bound 1%: the atomic sums of the "
+        f"embedding's backward may run in another order, and AdamW resolves no sign "
+        f"where a gradient is within its rounding of 0) {'ok' if good else 'FAIL'}")
+    ok &= good
+    del runs["resumed"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the training path failed its checks")
+
+    walls = [m["wall_s"] for m in trainer.metrics_log]
+    step_ms = statistics.median(walls[1:]) * 1e3
+    mfu = 6 * n_params * tokens / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    log(f"[timing] {cfg.name} train step (global batch {global_batch} x {seq_len}, "
+        f"{microbatches} microbatches, remat full): median {step_ms:.3f} ms of steps "
+        f"2..{steps} (first {walls[0] * 1e3:.3f} ms; all {[round(w * 1e3, 1) for w in walls]}); "
+        f"{tokens / step_ms * 1e3:.0f} tok/s; 6 N tokens / step time = "
+        f"{mfu * 100:.2f}% of {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s (N = "
+        f"{n_params / 1e6:.1f} M)")
+    batch = to_tensors(SyntheticLMDataset(cfg, global_batch=global_batch,
+                                          seq_len=seq_len).batch_at(steps), dev)
+    state, _ = trainer._step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, metrics = trainer._step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    busy_ms, launches, (k2_ms,) = device_totals(prof, "flash_fwd_")
+    log(f"[profile] {cfg.name} train step (torch.profiler, one step): device busy "
+        f"{busy_ms:.3f} ms ({busy_ms / step_ms * 100:.1f}% of the {step_ms:.3f} ms "
+        f"step); {launches} kernel launches; flash_attention (K2, forward and "
+        f"recompute) {k2_ms:.3f} ms ({k2_ms / busy_ms * 100:.2f}% of device time)")
+    del state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the plain attention backward (K2's Function.backward: the chunked
+    # path's forward and backward) at the step's shape, one layer and
+    # microbatch a call
+    mb = global_batch // microbatches
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(mb, seq_len, h, D, generator=gen, device=dev)
+               .to(torch.bfloat16).requires_grad_(True) for h in (H, KV, KV))
+    g = torch.randn(mb, seq_len, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    bwd = lambda: torch.autograd.grad(ops.plain_flash_attention(q, k, v), (q, k, v), g)
+    bwd_ms = time_ms(bwd, flush, iters=5, warmup=1)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: ops.flash_attention(q, k, v), flush, iters=20)
+    calls = cfg.n_layers * microbatches
+    log(f"[timing] plain attention backward at B={mb} S={seq_len} H={H} KV={KV} "
+        f"D={D} causal bf16: {bwd_ms:.3f} ms a call, x {calls} calls = "
+        f"{bwd_ms * calls:.1f} ms a step, {bwd_ms * calls / step_ms * 100:.1f}% of "
+        f"the step; K2's forward at that shape {fwd_ms:.6f} ms")
+    log(f"[train] peak device memory of the training runs {gb(peak)}; checkpoint "
+        f"of params, m and v ({gb(3 * 4 * n_params)}): save {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s (to the card); phase time "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del q, k, v, g
+    return {"k2": k2_step * steps, "step_ms": step_ms, "bwd_ms": bwd_ms}
+
+
 def card() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -3099,6 +3468,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     vlm = phase_vlm(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = phase_grads(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(dev, flush)
     log(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
 
     k1_paths = {"smollm-360m serve": serve["launches"],
@@ -3109,12 +3484,16 @@ def main() -> int:
                 "qwen2-vl-7b decode": vlm["dec_k1"]}
     k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"],
                 "recurrentgemma-9b forward": hybrid["fwd_k2"],
-                "qwen2-vl-7b forward": vlm["fwd_k2"]}
+                "qwen2-vl-7b forward": vlm["fwd_k2"],
+                "smollm-360m train": train["k2"], **grads["by_path"]["flash_attention"]}
     k2_share.update({"deepseek-moe-16b forward": moe["k2_share"],
                      "recurrentgemma-9b forward": hybrid["k2_share"],
                      "qwen2-vl-7b forward": vlm["k2_share"]})
     k3_paths = {"deepseek-moe-16b serve": moe["serve_k3"],
-                "deepseek-moe-16b forward": moe["fwd_k3"]}
+                "deepseek-moe-16b forward": moe["fwd_k3"], **grads["by_path"]["moe_gmm"]}
+    k4_paths = {"mamba2-2.7b forward": ssm["fwd_k4"], **grads["by_path"]["ssd_scan"]}
+    k5_paths = {"recurrentgemma-9b forward": hybrid["fwd_k5"],
+                **grads["by_path"]["rglru_scan"]}
     kernels = [{
         "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": DECODE_REPLACES, "launches": sum(k1_paths.values()),
@@ -3149,8 +3528,8 @@ def main() -> int:
         "prefill_down": moe["rows"]["prefill_down"],
     }, {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
-        "replaces": SSD_REPLACES, "launches": ssm["fwd_k4"],
-        "launches_by_path": {"mamba2-2.7b forward": ssm["fwd_k4"]},
+        "replaces": SSD_REPLACES, "launches": sum(k4_paths.values()),
+        "launches_by_path": k4_paths,
         "routes": SSD_KERNELS,
         "route_launches_by_path": {"mamba2-2.7b forward": ssm["fwd_k4_routes"]},
         "tc_share_by_path": {"mamba2-2.7b forward": ssm["k4_share"]},
@@ -3161,8 +3540,8 @@ def main() -> int:
     }, {
         # top-level numbers: the gated entry in bf16, the main path's call
         "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
-        "replaces": RGLRU_REPLACES, "launches": hybrid["fwd_k5"],
-        "launches_by_path": {"recurrentgemma-9b forward": hybrid["fwd_k5"]},
+        "replaces": RGLRU_REPLACES, "launches": sum(k5_paths.values()),
+        "launches_by_path": k5_paths,
         "routes": RGLRU_KERNELS,
         "route_launches_by_path": {"recurrentgemma-9b forward": hybrid["fwd_k5_routes"]},
         "ring_share_by_path": {"recurrentgemma-9b forward": hybrid["k5_share"]},

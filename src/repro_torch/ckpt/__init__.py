@@ -1,0 +1,9 @@
+from repro_torch.ckpt.checkpoint import (
+    save_checkpoint,
+    restore_checkpoint,
+    latest_step,
+    AsyncCheckpointer,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "AsyncCheckpointer"]

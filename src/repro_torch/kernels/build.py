@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -97,3 +99,22 @@ def build_log(name: str) -> str:
     """nvcc's output for ``name`` (the ``-Xptxas -v`` register and
     shared-memory report), after ``load(name)``."""
     return _loaded[name][1]
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Grad mode is on and one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where ``needs_grad(*tensors)``. A kernel writes its output
+    through a raw pointer that autograd cannot see, so such a call would
+    hand back an output with no gradient, and a backward would give the
+    inputs none without a word. ``kernels/ops.py`` takes the kernels the
+    model runs through an ``autograd.Function``, whose forward runs with
+    grad mode off."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel's output would "
+            f"have none; call it through repro_torch.kernels.ops (an "
+            f"autograd.Function) or under torch.no_grad()")

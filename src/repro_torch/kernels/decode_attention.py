@@ -100,6 +100,7 @@ def _check(q, k_cache, v_cache, cache_pos, q_pos, window) -> None:
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if cache_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise TypeError("cache_pos and q_pos must be int32")
+    build.forbid_grad("flash_decode", q, k_cache, v_cache)
     devs = {t.device for t in (q, k_cache, v_cache, cache_pos, q_pos)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")

@@ -70,6 +70,7 @@ def _check(q, k, v, window) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    build.forbid_grad("flash_attention_fwd", q, k, v)
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")

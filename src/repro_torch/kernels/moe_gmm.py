@@ -63,6 +63,7 @@ def _check(x, w) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"x and w must share float32 or bfloat16, got {x.dtype} "
                         f"and {w.dtype}")
+    build.forbid_grad("moe_gmm", x, w)
     if x.device != w.device:
         raise ValueError(f"tensors on several devices: {x.device}, {w.device}")
 

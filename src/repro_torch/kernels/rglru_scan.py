@@ -79,6 +79,7 @@ def _check(names: str, streams, h0) -> None:
                         f"{[t.dtype for t in streams]}")
     if h0.dtype != torch.float32:
         raise TypeError(f"h0 must be float32, got {h0.dtype}")
+    build.forbid_grad("rglru_scan", *streams, h0)
     devs = {t.device for t in (*streams, h0)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
@@ -174,6 +175,7 @@ def rglru_gated(
     if tuple(log_a_base.shape) != (W,) or log_a_base.dtype != torch.float32:
         raise ValueError(f"log_a_base must be [{W}] float32, got "
                          f"{tuple(log_a_base.shape)} {log_a_base.dtype}")
+    build.forbid_grad("rglru_gated", log_a_base)
     if log_a_base.device != x.device:
         raise ValueError(f"log_a_base on {log_a_base.device}, x on {x.device}")
     if x.device.type == "cpu":

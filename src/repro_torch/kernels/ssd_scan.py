@@ -77,6 +77,7 @@ def _check(x, dt, A, Bm, Cm, chunk) -> None:
                         f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
+    build.forbid_grad("ssd_scan", x, dt, A, Bm, Cm)
     devs = {t.device for t in (x, dt, A, Bm, Cm)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")

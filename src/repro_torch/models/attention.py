@@ -11,7 +11,9 @@ Port of ``repro/models/attention.py``. Backends of ``multihead_attention``:
     so the port's path on the card goes through the kernel whatever the
     config says, as decode goes through K1. On CPU tensors ``chunked`` is
     the streaming softmax over KV chunks (a Python loop in place of
-    ``lax.scan``) and ``pallas`` is the kernel's plain version.
+    ``lax.scan``) and ``pallas`` is the kernel's plain version. Under
+    grad mode K2's backward re-runs ``_chunked_attention``, the path the
+    JAX model differentiates (``kernels/ops.py``).
 
 The JAX decode step returns a new cache and donates the old one; here the
 new token's K, V and position are written into the cache tensors in place.

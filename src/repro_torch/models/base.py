@@ -57,9 +57,34 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """A tree shaped like ``tree`` whose leaves are taken from ``leaves`` in
+    sorted-key order (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
+
+
 def tree_index(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
     return tree_map(lambda t: t[i], tree)
+
+
+def tree_unstack(tree: Any) -> list:
+    """The layers of a stacked tree, as a list of trees of views. Each leaf
+    is unbound once, so a backward through a loop over the layers stacks a
+    leaf's gradients once (indexing layer by layer would write a gradient
+    of the whole stack for every layer)."""
+    if isinstance(tree, dict):
+        per_key = {k: tree_unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def resolve_device(device) -> torch.device:

@@ -1,5 +1,6 @@
 """The LM, dense, audio, VLM, MoE, SSM and hybrid families: parameter and
-cache specs, the full-sequence forward (prefill) and the decode step.
+cache specs, the full-sequence forward (training, with the JAX model's
+remat policies, and prefill) and the decode step.
 
 Port of ``repro/models/transformer.py``. Stacked ``[L, ...]`` parameters
 and caches keep the JAX tree's keys; the layers run in a Python loop over
@@ -17,16 +18,20 @@ recurrent blocks keyed "0", "1", ....
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
-from repro_torch.models.base import tree_index, tree_map, torch_dtype
+from repro_torch.models.base import (tree_index, tree_map, tree_unstack,
+                                     torch_dtype)
 
 #: keys of the leaves the model reads in fp32 whatever the compute dtype:
 #: RMSNorm scales (layers.rmsnorm, the mixer's gated "norm" too), the MoE
@@ -35,6 +40,40 @@ from repro_torch.models.base import tree_index, tree_map, torch_dtype
 #: lam (its log-sigmoid decay runs in fp32)
 _FP32_KEYS = frozenset({"ln1", "ln2", "ln", "final_norm", "norm", "router",
                         "A_log", "dt_bias", "D", "lam"})
+
+
+# --------------------------------------------------------------------------- #
+# remat policies
+# --------------------------------------------------------------------------- #
+#: the matrix products whose outputs "dots" keeps for the backward
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """The JAX ``_remat`` (repro/models/transformer.py:40-49) in torch:
+    "none" runs ``fn`` as it is; "full" keeps only its inputs and runs it
+    again in the backward (``torch.utils.checkpoint``, JAX's
+    nothing_saveable); "dots" keeps the outputs of its matrix products and
+    recomputes the rest. Active only where grad mode is on: prefill and
+    decode (inference mode) run ``fn`` as it is."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat mode {mode}")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    if mode == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=_save_dots)
 
 
 def _stack_specs(specs: Any, n: int) -> Any:
@@ -76,11 +115,18 @@ def _res(sharder, x):
     return sharder.constrain(x, "act_batch", "act_seq", "act_embed")
 
 
+def _attn_fn(p, cfg, sharder, positions, mode, window):
+    """The block's attention; ``cfg.remat_attention`` nests a full remat
+    around it (JAX ``_attn_fn``, transformer.py:117-123)."""
+    fn = lambda h: attn.attention_block(p, cfg, sharder, h, positions,
+                                        mode=mode, window=window)
+    return _remat(fn, "full") if cfg.remat_attention else fn
+
+
 def dense_block_fwd(p, cfg, sharder, x, positions, *, mode, window):
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     h = sharder.sp_boundary(h)
-    h = attn.attention_block(p["attn"], cfg, sharder, h, positions,
-                             mode=mode, window=window)
+    h = _attn_fn(p["attn"], cfg, sharder, positions, mode, window)(h)
     x = _res(sharder, x + h)
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     h = sharder.sp_boundary(h)
@@ -91,8 +137,7 @@ def dense_block_fwd(p, cfg, sharder, x, positions, *, mode, window):
 def moe_block_fwd(p, cfg, sharder, x, positions, *, mode, window):
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     h = sharder.sp_boundary(h)
-    h = attn.attention_block(p["attn"], cfg, sharder, h, positions,
-                             mode=mode, window=window)
+    h = _attn_fn(p["attn"], cfg, sharder, positions, mode, window)(h)
     x = _res(sharder, x + h)
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     h = sharder.sp_boundary(h)
@@ -197,44 +242,55 @@ class LM:
         logits = L.unembed(x, params["unembed"])
         return sharder.constrain(logits, "act_batch", None, "act_vocab")
 
-    # ---------------- full-sequence forward (prefill) ---------------- #
+    # ---------------- full-sequence forward (train / prefill) ---------------- #
     def forward(self, params, batch, sharder) -> tuple[torch.Tensor, dict]:
         """batch {tokens [B,S] | embeds [B,S,Din], positions [B,S]}.
-        Returns (logits [B,S,V], aux). The JAX forward wraps each block in
-        ``cfg.remat``; rematerialisation only matters to a backward pass,
-        so this forward-only port has none (``torch.utils.checkpoint``
-        arrives with training, ROADMAP M10)."""
+        Returns (logits [B,S,V], aux). Where grad mode is on, each block
+        runs under ``cfg.remat`` (``_remat``), as the JAX forward's blocks
+        do; under inference mode (prefill) the blocks run as they are. The
+        stacks are unbound once (``tree_unstack``), so a backward stacks
+        each leaf's gradients once."""
         cfg = self.cfg
         x = self._embed_in(params, batch, sharder)
         positions = batch["positions"]
         mode = "bidir" if cfg.encoder_only else "causal"
+        remat = lambda fn: _remat(fn, cfg.remat)
         aux_a = torch.zeros((), dtype=torch.float32, device=x.device)
         aux_z = aux_a.clone()
         if cfg.family == "moe":
-            for i in range(cfg.first_k_dense):
-                x = dense_block_fwd(tree_index(params["dense_layers"], i), cfg,
-                                    sharder, x, positions, mode=mode, window=None)
-            for i in range(cfg.n_layers - cfg.first_k_dense):
-                x, a = moe_block_fwd(tree_index(params["layers"], i), cfg, sharder,
-                                     x, positions, mode=mode, window=None)
+            dense = remat(lambda p, h: dense_block_fwd(
+                p, cfg, sharder, h, positions, mode=mode, window=None))
+            for p in (tree_unstack(params["dense_layers"])
+                      if cfg.first_k_dense else []):
+                x = dense(p, x)
+            body = remat(lambda p, h: moe_block_fwd(
+                p, cfg, sharder, h, positions, mode=mode, window=None))
+            for p in tree_unstack(params["layers"]):
+                x, a = body(p, x)
                 aux_a = aux_a + a["moe_aux"]
                 aux_z = aux_z + a["moe_z"]
         elif cfg.family == "ssm":
-            for i in range(cfg.n_layers):
-                x = ssm_block_fwd(tree_index(params["layers"], i), cfg, sharder, x)
+            body = remat(lambda p, h: ssm_block_fwd(p, cfg, sharder, h))
+            for p in tree_unstack(params["layers"]):
+                x = body(p, x)
         elif cfg.family == "hybrid":
-            for i in range(self._hybrid_split()[0]):
-                p = tree_index(params["superblocks"], i)
-                x = rec_block_fwd(p["rec1"], cfg, sharder, x)
-                x = rec_block_fwd(p["rec2"], cfg, sharder, x)
-                x = dense_block_fwd(p["attn"], cfg, sharder, x, positions,
-                                    mode="causal", window=cfg.local_window)
+            def super_fwd(p, h):
+                h = rec_block_fwd(p["rec1"], cfg, sharder, h)
+                h = rec_block_fwd(p["rec2"], cfg, sharder, h)
+                return dense_block_fwd(p["attn"], cfg, sharder, h, positions,
+                                       mode="causal", window=cfg.local_window)
+
+            body = remat(super_fwd)
+            for p in tree_unstack(params["superblocks"]):
+                x = body(p, x)
+            tail = remat(lambda p, h: rec_block_fwd(p, cfg, sharder, h))
             for key in sorted(params["tail"], key=int):
-                x = rec_block_fwd(params["tail"][key], cfg, sharder, x)
+                x = tail(params["tail"][key], x)
         else:
-            for i in range(cfg.n_layers):
-                x = dense_block_fwd(tree_index(params["layers"], i), cfg, sharder,
-                                    x, positions, mode=mode, window=cfg.swa_window)
+            body = remat(lambda p, h: dense_block_fwd(
+                p, cfg, sharder, h, positions, mode=mode, window=cfg.swa_window))
+            for p in tree_unstack(params["layers"]):
+                x = body(p, x)
         aux = {"moe_aux": aux_a, "moe_z": aux_z}
         return self._logits_out(params, x, sharder), aux
 

@@ -1,3 +1,4 @@
-from repro_torch.train.step import make_serve_step
+from repro_torch.train.loss import lm_loss
+from repro_torch.train.step import make_train_step, make_eval_step, init_train_state
 
-__all__ = ["make_serve_step"]
+__all__ = ["lm_loss", "make_train_step", "make_eval_step", "init_train_state"]

@@ -1,10 +1,18 @@
-"""Inference steps: the full-sequence forward (prefill) and the function
-the engine calls once per decode token.
+"""Train and eval steps (microbatch gradient accumulation, the remat of the
+model's forward, the optimizer), and the inference steps: the
+full-sequence forward (prefill) and the function the engine calls once per
+decode token. Port of ``repro/train/step.py``.
+
+The train step is eager: the model's forward and ``torch.autograd.grad``
+of the loss, a microbatch at a time, with the gradients summed in fp32
+buffers (``accum_dtype``; not ``.grad``, which would sum a bf16 tree in
+bf16), then the optimizer's in-place update. On the card the forward runs
+the hand-written kernels and their backward the plain paths the JAX model
+differentiates (``kernels/ops.py``).
 
 Nothing in here checkpoints: the preemption point is the step's call site,
-which the serving engine wraps with ``repro_torch.core.autockpt``
-(docs/PREEMPTION.md tier 3). The training step arrives with its own slice
-(ROADMAP M10).
+which the trainer and the serving engine wrap with
+``repro_torch.core.autockpt`` (docs/PREEMPTION.md tier 3).
 """
 
 from __future__ import annotations
@@ -12,6 +20,116 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from repro_torch.models.base import torch_dtype, tree_leaves, tree_unflatten
+from repro_torch.optim import make_optimizer
+from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.train.loss import lm_loss
+
+
+def init_train_state(model, params) -> dict:
+    """{"step": 0-d int32, "params": params, "opt": the optimizer's state},
+    on the params' device (the JAX state's tree, key for key)."""
+    opt = make_optimizer(model.cfg.optimizer)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+    return {"step": step, "params": params, "opt": opt.init(params)}
+
+
+def _loss_fn(model, sharder, params, batch):
+    logits, aux = model.forward(params, batch, sharder)
+    loss, metrics = lm_loss(logits, batch["labels"], z_loss=model.cfg.z_loss)
+    if model.cfg.family == "moe":
+        loss = loss + aux["moe_aux"] + aux["moe_z"]
+        metrics["moe_aux"] = aux["moe_aux"]
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _split_microbatches(batch: dict, k: int) -> list[dict]:
+    """``batch`` as ``k`` microbatches of its rows (views). Every input
+    splits along its first dim, but M-RoPE's [3,B,S] positions, which
+    split along their second. The JAX split picks the axis by divisibility
+    (step.py:46-55), so at k = 3 it splits the three position streams
+    instead (ROADMAP Queue 3, F4); here the axis follows the input."""
+
+    def axis(key, x):
+        return 1 if key == "positions" and x.ndim == 3 else 0
+
+    for key, x in batch.items():
+        if x.ndim == 0 or x.shape[axis(key, x)] % k:
+            raise ValueError(f"cannot split {key} {tuple(x.shape)} into {k} "
+                             f"microbatches")
+    parts = {key: torch.chunk(x, k, dim=axis(key, x)) for key, x in batch.items()}
+    return [{key: p[j] for key, p in parts.items()} for j in range(k)]
+
+
+def make_train_step(
+    model,
+    sharder,
+    *,
+    microbatches: int = 1,
+    peak_lr: float = 3e-4,
+    warmup: int = 100,
+    total_steps: int = 10_000,
+    accum_dtype: str = "float32",
+) -> Callable[[dict, dict], tuple[dict, dict]]:
+    """``train_step(state, batch) -> (state, metrics)``: the loss and its
+    gradients (summed over ``microbatches`` in ``accum_dtype``, then
+    averaged), one optimizer update of ``state``'s params and moments in
+    place, and metrics (tensors on the device: the loss terms, ``grad_norm``
+    and ``lr``). A param that the loss does not reach raises: its gradient
+    would be missing, not zero."""
+    opt = make_optimizer(model.cfg.optimizer)
+    adt = torch_dtype(accum_dtype)
+
+    def grads_of(params, leaves, batch):
+        loss, metrics = _loss_fn(model, sharder, params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if microbatches == 1:
+            grads, metrics = grads_of(params, leaves, batch)
+        else:
+            grads = [torch.zeros(p.shape, dtype=adt, device=p.device)
+                     for p in leaves]
+            mlist = []
+            for mb in _split_microbatches(batch, microbatches):
+                g, m = grads_of(params, leaves, mb)
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.to(adt))
+                mlist.append(m)
+                del g
+            for acc in grads:
+                acc.div_(microbatches)
+            metrics = {k: torch.stack([m[k] for m in mlist]).mean(0)
+                       for k in mlist[0]}
+
+        lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
+                           total=total_steps)
+        params, opt_state = opt.update(tree_unflatten(params, grads),
+                                       state["opt"], params, lr)
+        metrics["grad_norm"] = torch.sqrt(
+            sum(torch.sum(torch.square(g.float())) for g in grads))
+        metrics["lr"] = lr
+        return ({"step": state["step"] + 1, "params": params, "opt": opt_state},
+                metrics)
+
+    return train_step
+
+
+def make_eval_step(model, sharder) -> Callable[[dict, dict], dict]:
+    @torch.no_grad()
+    def eval_step(params: dict, batch: dict) -> dict:
+        _, metrics = _loss_fn(model, sharder, params, batch)
+        return metrics
+
+    return eval_step
 
 
 def make_prefill_step(model, sharder) -> Callable[[dict, dict], torch.Tensor]:

@@ -2,6 +2,7 @@
 package, and its copies of the scheduler, the broker, the trace layer and
 the configs do not drift."""
 
+import json
 import os
 import re
 import subprocess
@@ -34,7 +35,7 @@ COPIED = sorted(
 )
 
 _PROBE = r"""
-import importlib, sys
+import importlib, json, sys
 from pathlib import Path
 sys.modules["jax"] = None  # any attempt to import jax raises ImportError
 src = Path(sys.argv[1])
@@ -46,18 +47,37 @@ for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
-print(len(mods), bad)
+print(json.dumps({"mods": mods, "bad": bad}))
 """
 
+#: the training path's modules (ROADMAP M10), named so that the check
+#: above fails if one of them goes missing from the package
+TRAINING = ["repro_torch.train", "repro_torch.train.loss", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.optim",
+            "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+            "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.ckpt",
+            "repro_torch.ckpt.checkpoint"]
 
-def test_port_imports_without_jax_or_the_jax_package():
+
+@pytest.fixture(scope="module")
+def probe():
+    """Every repro_torch module and chip_smoke.py imported in a subprocess
+    where ``import jax`` raises: {"mods": imported, "bad": repro.* loaded}."""
     env = dict(os.environ, PYTHONPATH=f"{SRC}{os.pathsep}{ROOT}")
     r = subprocess.run([sys.executable, "-c", _PROBE, str(SRC)], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    n, bad = r.stdout.split(maxsplit=1)
-    assert int(n) >= 20
-    assert bad.strip() == "[]", bad
+    return json.loads(r.stdout)
+
+
+def test_port_imports_without_jax_or_the_jax_package(probe):
+    assert len(probe["mods"]) >= 20
+    assert probe["bad"] == [], probe["bad"]
+
+
+@pytest.mark.parametrize("module", TRAINING)
+def test_training_module_imports_without_jax(module, probe):
+    assert module in probe["mods"]
 
 
 @pytest.mark.parametrize("rel", COPIED)

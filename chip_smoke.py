@@ -186,6 +186,27 @@ torch version. Phases, each fatal on failure:
            against their plain versions and SDPA, forward and decode step
            times, profiles (all of K2's device time in `FLASH_TMA`), peak
            memory.
+14. distribution (M11) full-width smollm-360m, phase 13's train step
+           (8 x 2048 in 2 microbatches, remat full, AdamW). (a) The port's
+           dry run (`launch/dryrun.py run_cell` on a one-card mesh, traced
+           on fake tensors in a process started before phase 12, so the
+           CPU trace overlaps phases 12-13) against the card: the real step under
+           `plain_ops(**ops.PLAIN)` (the aten ops that were traced) must
+           count the traced FLOPs to the FLOP (`FlopCounterMode`), take
+           longer than the roofline's step time (H100 rates), and peak
+           (`max_memory_allocated`) inside `MEM_BAND` of the traced peak.
+           (b) Two ranks on the one card (spawned, gloo, store in a
+           temporary directory; `dist_child`): the data-parallel step
+           under a `(data=2)` mesh with `embed` unsharded, K2 on each
+           rank's shards, against the single-process step on the whole
+           batch (loss, params, m and v within `dp_bounds`, the fp32
+           reorder of the gradient sum carried through AdamW); the int8
+           `compressed_psum` over that step's gradients against the exact
+           all-reduce (within n · scale / 2 + fp32 rounding); `gpipe_forward`
+           of the 32 layers as two stages over the ranks, 4 microbatches,
+           against the single-process forward; and a checkpoint saved by
+           one process, restored by both with `shardings=`, whose
+           data-parallel step must equal the single-process step from it.
 Each model's weights are freed before the next model's phase.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
@@ -200,9 +221,12 @@ import contextlib
 import gc
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3354,6 +3378,544 @@ def phase_train(dev, flush, *, steps=10, global_batch=8, seq_len=2048,
     return {"k2": k2_step * steps, "step_ms": step_ms, "bwd_ms": bwd_ms}
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: distribution
+# --------------------------------------------------------------------------- #
+#: phase 14a's memory band, (low, high factor, high slack bytes): the card's
+#: peak over the traced peak (PERF.md §6: the allocator never holds less
+#: than the live storages; above them it adds unsplit segment tails, up to
+#: 1 MiB a live block over 1 MiB, cuBLAS workspaces and kernel temporaries)
+MEM_BAND = (0.97, 1.10, 256 * 2 ** 20)
+#: phase 14's run: global batch, sequence, microbatches a rank, ranks
+DIST_RUN = {"global_batch": 8, "seq_len": 2048, "microbatches": 2, "ranks": 2}
+
+
+def local(x):
+    """A DTensor's full value on this rank (its placements are replicas),
+    or a plain tensor, detached."""
+    from repro_torch.runtime.sharding import is_dtensor
+
+    return (x.full_tensor() if is_dtensor(x) else x).detach()
+
+
+def microbatch_grads(model, params, batch, k):
+    """(mean gradient over ``k`` microbatches in fp32, summed in
+    make_train_step's order; the mean of |g| over them), plain tensors."""
+    import torch
+
+    from repro_torch.models.base import tree_leaves, tree_unflatten
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import _loss_fn, _split_microbatches
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    acc = absum = None
+    for mb in _split_microbatches(batch, k):
+        loss, _ = _loss_fn(model, Sharder(None), params, mb)
+        g = [t.float() for t in torch.autograd.grad(loss, leaves)]
+        if acc is None:
+            acc = [t.clone() for t in g]
+            absum = [t.abs() for t in g]
+        else:
+            for a, b, t in zip(acc, absum, g):
+                a.add_(t)
+                b.add_(t.abs())
+        del g, loss
+    for p in leaves:
+        p.requires_grad_(False)
+    for a, b in zip(acc, absum):
+        a.div_(k)
+        b.div_(k)
+    return tree_unflatten(params, acc), tree_unflatten(params, absum)
+
+
+def dp_bounds(state0, grad, absum, lr, *, terms):
+    """Elementwise bounds on |data-parallel - single-process| for the
+    params, m and v after one AdamW step from ``state0`` (PERF.md §6).
+
+    The two steps run the same microbatches through the same kernels at
+    the same shapes; only the fp32 sum of the ``terms`` microbatch
+    gradients runs in another order: two ranks' partial sums, then the
+    all-reduce (off the exact sum by at most 2u sum|g_j|, u = 2^-24),
+    against the sequential sum (at most (terms - 1) u sum|g_j|). After
+    the mean the two differ by at most (terms + 1) u mean|g_j|, inside
+    ``delta = (terms + 2) u · mean|g_j|``. AdamW is run at grad ± delta
+    from the same state: twice the
+    larger move of each element, plus two fp32 ulps of the update's
+    operands, bounds the step's difference. Returns {"params"|"m"|"v":
+    [bound leaves]}.""" 
+    import copy
+
+    import torch
+
+    from repro_torch.models.base import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.optim.optimizers import adamw_update
+
+    u = 2.0 ** -24
+    delta = [(terms + 2) * u * a * 1.01 for a in tree_leaves(absum)]
+    keys = ("params", "m", "v")
+
+    def step_at(sign):
+        """params, m, v (leaf lists) after AdamW from state0 at grad +
+        sign * delta; copies, so state0 stays as it is."""
+        st = copy.deepcopy(state0["opt"])
+        p = tree_map(lambda t: t.detach().clone(), state0["params"])
+        g = tree_unflatten(grad, [gi + sign * d for gi, d in
+                                  zip(tree_leaves(grad), delta)])
+        p, st = adamw_update(g, st, p, lr=lr)
+        del g
+        return {"params": tree_leaves(p), "m": tree_leaves(st["m"]),
+                "v": tree_leaves(st["v"])}
+
+    # one endpoint at a time, the bound kept in the first one's storage:
+    # three copies of the state at most (the card holds both ranks)
+    mid = step_at(0.0)
+    bound = None
+    for sign in (1.0, -1.0):
+        end = step_at(sign)
+        for key in keys:
+            for i, (e, m) in enumerate(zip(end[key], mid[key])):
+                e.sub_(m).abs_()
+                if bound is not None:
+                    torch.maximum(bound[key][i], e, out=bound[key][i])
+        if bound is None:
+            bound = end
+        del end
+    # the fp32 rounding of each update, at the scale of its operands (p -
+    # lr step cancels where p is near lr: an ulp of p, not of the result)
+    eps = torch.finfo(torch.float32).eps
+    old = {"params": tree_leaves(state0["params"]), "m": tree_leaves(state0["opt"]["m"]),
+           "v": tree_leaves(state0["opt"]["v"])}
+    for key in keys:
+        for b, m, o, g in zip(bound[key], mid[key], old[key], tree_leaves(grad)):
+            extra = {"params": abs(float(lr)), "m": g.abs(), "v": g.square()}[key]
+            b.mul_(2).add_(2 * eps * (m.abs() + o.abs() + extra)).add_(1e-30)
+    return bound
+
+
+def leaf_names(tree, prefix=""):
+    """The leaves' key paths in sorted-key order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def held(got_state, want_state, bounds) -> dict:
+    """{key: (worst |got - want| / bound, leaves over)} for params, m, v."""
+    from repro_torch.models.base import tree_leaves
+
+    out = {}
+    for key, g, w in (("params", got_state["params"], want_state["params"]),
+                      ("m", got_state["opt"]["m"], want_state["opt"]["m"]),
+                      ("v", got_state["opt"]["v"], want_state["opt"]["v"])):
+        worst, over = 0.0, 0
+        for name, a, b, lim in zip(leaf_names(g), tree_leaves(g), tree_leaves(w),
+                                   bounds[key]):
+            r = ((local(a).detach().float() - b.detach().float()).abs() / lim).max().item()
+            worst = max(worst, r)
+            if r > 1:
+                over += 1
+                log(f"[dist] {key} {name}: |dp - one| up to {r:.3e} x its bound")
+        out[key] = (worst, over)
+    return out
+
+
+def _dist_rank(rank, n, dev, opts) -> dict:
+    """Phase 14b on one rank (see ``dist_child``): GPipe and the compressed
+    all-reduce on the initial weights, then the data-parallel step checked
+    against one process, a timed one, and the step from a checkpoint
+    restored onto the mesh. Rank 0 runs the single-process references
+    (each in place on its own copy, so the card holds both ranks)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import get_arch, get_smoke
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.inputs import batch_axes, make_batch
+    from repro_torch.models.base import (abstract_tree, axes_tree, init_tree,
+                                         shardings_tree, tree_leaves, tree_map,
+                                         tree_unstack)
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import dense_block_fwd
+    from repro_torch.runtime.dist import compressed_psum
+    from repro_torch.runtime.pipeline import gpipe_forward
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = (get_smoke if opts["smoke"] else get_arch)(opts["arch"])
+    B, S, k = opts["global_batch"], opts["seq_len"], opts["microbatches"]
+    model = build_model(cfg)
+    specs = model.param_specs()
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    params0 = init_tree(gen(0), specs, cfg.param_dtype, dev)
+    batch = make_batch(cfg, B, S, gen(1), dev)
+    mesh = init_device_mesh(dev.type, (n,), mesh_dim_names=("data",))
+    sharder = Sharder(mesh).with_rules({"embed": ()})
+    step_kw = dict(peak_lr=1e-3, warmup=0, total_steps=10)
+    dp_step = make_train_step(model, sharder, microbatches=k, **step_kw)
+    one_step = make_train_step(model, Sharder(None), microbatches=k * n, **step_kw)
+    dbatch = sharder.place_tree(batch_axes(cfg, with_labels=True), batch)
+    out = {"rank": rank, "batch_spec": {key: str(x.placements) for key, x in dbatch.items()}}
+    k2 = flash_attention.flash_attention_fwd
+    good = True
+
+    # --- GPipe: the layers as n stages, 4 microbatches
+    n_micro = 4
+    per = cfg.n_layers // n
+    stage = tree_map(lambda t: t[rank * per:(rank + 1) * per], params0["layers"])
+    pos = batch["positions"][:B // n_micro]
+
+    def stage_fn(p, x):
+        for lp in tree_unstack(p):
+            x = dense_block_fwd(lp, cfg, Sharder(None), x, pos, mode="causal",
+                                window=cfg.swa_window)
+        return x
+
+    with torch.inference_mode():
+        h0 = model._embed_in(params0, batch, Sharder(None))
+        mbs = h0.reshape(n_micro, B // n_micro, *h0.shape[1:])
+        stats = {}
+        k2.launches = 0
+        piped = gpipe_forward(None, stage_fn, stage, mbs, stats=stats)
+        out["gpipe"] = {**stats, "k2": k2.launches}
+        if rank == 0:
+            whole = torch.stack([stage_fn(params0["layers"], x) for x in mbs])
+            diff = (piped.float() - whole.float()).abs()
+            lim = TOL["bfloat16"] + TOL["bfloat16"] * whole.float().abs()
+            out["gpipe_diff"] = diff.max().item()
+            out["gpipe_ratio"] = (diff / lim).max().item()
+            good &= out["gpipe_ratio"] <= 1
+            del whole, diff, lim
+        del h0, mbs, piped, stage
+
+    # --- the compressed all-reduce over this rank's gradient share
+    lo, hi = rank * B // n, (rank + 1) * B // n
+    mine = {key: (x[:, lo:hi] if key == "positions" and x.ndim == 3 else x[lo:hi])
+            for key, x in batch.items()}
+    gmine, gabs = microbatch_grads(model, params0, mine, k)
+    del gabs
+    leaves = [g.div_(n) for g in tree_leaves(gmine)]
+    sync()
+    t0 = time.perf_counter()
+    exact = []
+    for g in leaves:
+        e = g.clone()
+        dist.all_reduce(e)
+        exact.append(e)
+    sync()
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comp = [compressed_psum(g) for g in leaves]
+    sync()
+    comp_s = time.perf_counter() - t0
+    worst = 0.0
+    for g, e, c in zip(leaves, exact, comp):
+        amax = g.abs().amax()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+        scale = torch.clamp_min(amax / 127.0, 1e-12)
+        lim = n * scale / 2 + 2.0 ** -22 * (e.abs() + c.abs())
+        worst = max(worst, ((c - e).abs() / lim).max().item())
+    out.update(exact_allreduce_s=exact_s, compressed_allreduce_s=comp_s,
+               compressed_worst=worst, grad_bytes=sum(g.numel() * 4 for g in leaves))
+    good &= worst <= 1
+    del gmine, leaves, exact, comp
+
+    axes = axes_tree(specs)
+    state_axes = {"step": None, "params": axes,
+                  "opt": {"m": axes, "v": axes, "count": None}}
+
+    def placed(state):
+        """A plain train state (copied) as the mesh's DTensors."""
+        return sharder.place_tree(state_axes, tree_map(lambda t: t.clone(), state))
+
+    def dp_from(dstate):
+        """The data-parallel step from ``dstate`` (DTensors): K2 launches,
+        the new state, the loss, seconds."""
+        sync()
+        k2.launches = 0
+        t0 = time.perf_counter()
+        dstate, m = dp_step(dstate, dbatch)
+        loss = local(m["loss"]).item()
+        sync()
+        return k2.launches, dstate, loss, time.perf_counter() - t0
+
+    def check(state0, dstate, dloss, tag):
+        """rank 0: the single-process step from ``state0`` on the whole
+        batch (in place: ``state0`` becomes its result) against the
+        data-parallel one."""
+        grad, absum = microbatch_grads(model, state0["params"], batch, k * n)
+        lr = warmup_cosine_at(state0["step"], step_kw)
+        bounds = dp_bounds(state0, grad, absum, lr, terms=k * n)
+        del grad, absum
+        want, wm = one_step(state0, batch)
+        wloss = wm["loss"].item()
+        res = held(dstate, want, bounds)
+        loss_ok = abs(dloss - wloss) <= 8 * 2.0 ** -24 * abs(wloss)
+        ok = loss_ok and all(over == 0 for _, over in res.values())
+        log(f"[dist] rank 0: {tag}: loss {dloss:.7f} against the single process's "
+            f"{wloss:.7f} (|diff| {abs(dloss - wloss):.3e}, bound 8u|loss|); worst "
+            f"|diff| / bound: params {res['params'][0]:.3e}, m {res['m'][0]:.3e}, "
+            f"v {res['v'][0]:.3e}; leaves over: {sum(o for _, o in res.values())} "
+            f"{'ok' if ok else 'FAIL'}")
+        return ok, {key: r[0] for key, r in res.items()}
+
+    # --- the data-parallel step, checked; rank 0 then saves the reference
+    state0 = init_train_state(model, params0)
+    launches, dstate, dloss, _ = dp_from(placed(state0))
+    out["k2_dp_step"] = launches
+    if rank == 0:
+        ok1, out["dp_ratio"] = check(state0, dstate, dloss, "data-parallel step")
+        good &= ok1
+        out["dp_loss"] = dloss
+        save_checkpoint(state0, opts["ckpt"], 1, keep=1)
+    del state0, params0
+    # --- timed: a second data-parallel step
+    _, dstate, _, secs = dp_from(dstate)
+    out["step_s"] = secs
+    del dstate
+
+    # --- elastic restore: saved by rank 0, restored by both onto the mesh
+    dist.barrier()
+    placements = shardings_tree(specs, sharder)
+    meta = abstract_tree(specs, cfg.param_dtype)
+    count = torch.empty((), dtype=torch.int32, device="meta")
+    target = {"step": count, "params": meta, "opt": {"m": meta, "v": meta, "count": count}}
+    shard_tree = {"step": None, "params": placements,
+                  "opt": {"m": placements, "v": placements, "count": None}}
+    back = restore_checkpoint(opts["ckpt"], 1, target, shardings=shard_tree, mesh=mesh)
+    out["restored_placements"] = str(tree_leaves(back["params"])[0].placements)
+    # rank 0's reference: the same checkpoint as plain tensors on the card
+    plain_back = (restore_checkpoint(opts["ckpt"], 1, target, mesh=mesh)
+                  if rank == 0 else None)
+    launches3, dstate3, dloss3, _ = dp_from(back)
+    out["k2_elastic_step"] = launches3
+    if rank == 0:
+        ok3, out["elastic_ratio"] = check(plain_back, dstate3, dloss3,
+                                          "data-parallel step from the restored checkpoint")
+        good &= ok3
+    dist.barrier()
+    out["ok"] = bool(good)
+    return out
+
+
+def warmup_cosine_at(step, kw):
+    from repro_torch.optim.schedules import warmup_cosine
+
+    return warmup_cosine(step, peak_lr=kw["peak_lr"], warmup=kw["warmup"],
+                         total=kw["total_steps"])
+
+
+def dist_child(rank: int, opts: dict) -> None:
+    """One rank of phase 14b, in a process of its own (spawned): a gloo
+    group over a file store, ranks on one device, results to
+    ``opts["out"]``.<rank>.json."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(opts["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    n = opts["ranks"]
+    dist.init_process_group("gloo", store=dist.FileStore(opts["store"], n),
+                            rank=rank, world_size=n)
+    try:
+        out = _dist_rank(rank, n, dev, opts)
+        Path(f"{opts['out']}.{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(opts: dict) -> list[dict]:
+    """Spawn ``opts["ranks"]`` processes of ``dist_child``; their results.
+    Raises if a child fails (``start_processes`` joins them all)."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(dist_child, args=(opts,), nprocs=opts["ranks"],
+                       start_method="spawn", join=True)
+    return [json.loads(Path(f"{opts['out']}.{r}.json").read_text())
+            for r in range(opts["ranks"])]
+
+
+def dry_run_cell() -> dict:
+    """Phase 14a's dry run: phase 13's step (smollm-360m, ``DIST_RUN``'s
+    batch) traced on a one-card mesh (CPU only, fake tensors)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+
+    B, S = DIST_RUN["global_batch"], DIST_RUN["seq_len"]
+    t0 = time.perf_counter()
+    r = run_cell("smollm_360m", ShapeConfig(f"train_{B}x{S}", S, B, "train"),
+                 microbatches=DIST_RUN["microbatches"], probes=False, verbose=False,
+                 mesh_shape=((1, 1), ("data", "model")))
+    r["wall_s"] = time.perf_counter() - t0
+    return r
+
+
+def start_dry_run(out: Path) -> subprocess.Popen:
+    """``dry_run_cell`` in a process of its own (one intra-op thread), its
+    result to ``out``: the trace needs only the CPU, so it runs while
+    phases 12 and 13 hold the card."""
+    code = ("import json, sys, torch; torch.set_num_threads(1); "
+            "import chip_smoke; "
+            "open(sys.argv[1], 'w').write(json.dumps(chip_smoke.dry_run_cell(), default=str))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), str(ROOT), os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    return subprocess.Popen([sys.executable, "-c", code, str(out)], cwd=ROOT, env=env)
+
+
+def finish_dry_run(proc: subprocess.Popen, out: Path) -> dict:
+    if proc.wait(timeout=900) != 0:
+        raise AssertionError(f"the dry-run process exited with {proc.returncode}")
+    return json.loads(out.read_text())
+
+
+def phase_distribution(dev, flush, train_step_ms, dry):
+    """Phase 14: the dry run held against the card (a), and two ranks on
+    the card (b)."""
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import make_batch
+    from repro_torch.models.base import init_tree
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import Sharder
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    card_text = card()
+    cfg = get_arch("smollm_360m")
+    run = DIST_RUN
+    B, S, k = run["global_batch"], run["seq_len"], run["microbatches"]
+
+    # --- 14a: the dry run of the step on a one-card mesh (``dry``: the
+    # ``start_dry_run`` process and its output file)
+    t0 = time.perf_counter()
+    r = finish_dry_run(*dry)
+    waited_s = time.perf_counter() - t0
+    if r["status"] != "ok":
+        raise AssertionError(f"the dry run of the train step failed: {r.get('error')}")
+    flops_pred = r["full"]["cost_raw"]["flops"]
+    peak_pred = r["full"]["memory"]["peak_bytes_est"]
+    roof = r["roofline"]
+    log(f"[dist] 14a: dry run of {cfg.name} train {B} x {S}, {k} microbatches, "
+        f"remat {cfg.remat}, on a 1-card mesh: traced in {r['full']['trace_s']:.1f} s "
+        f"({r['wall_s']:.1f} s with the fake world; waited {waited_s:.1f} s for it); "
+        f"per device {flops_pred:.6e} FLOP, "
+        f"{r['full']['cost_raw']['bytes']:.6e} bytes, peak {gb(peak_pred)}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    params = init_tree(torch.Generator(device=dev).manual_seed(0),
+                       model.param_specs(), cfg.param_dtype, dev)
+    state = init_train_state(model, params)
+    batch = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1), dev)
+    step = make_train_step(model, Sharder(None), microbatches=k)
+    ok = True
+    with plain_ops(**ops.PLAIN):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            state, m = step(state, batch)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        peak_card = torch.cuda.max_memory_allocated() - base
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    flops_card = counter.get_total_flops()
+    step_s = min(walls)
+    good = flops_card == flops_pred
+    log(f"[dist] 14a: FlopCounterMode of the real step (plain ops) {flops_card} FLOP "
+        f"against the dry run's {int(flops_pred)} {'ok' if good else 'FAIL'}")
+    ok &= good
+    good = step_s > roof["step_time_s"]
+    log(f"[dist] 14a: plain step {step_s * 1e3:.3f} ms (best of {[round(w * 1e3, 1) for w in walls]}) "
+        f"above the roofline's {roof['step_time_s'] * 1e3:.3f} ms ({roof['dominant']}: "
+        f"compute {roof['compute_s'] * 1e3:.3f} ms, memory {roof['memory_s'] * 1e3:.3f} ms, "
+        f"collective {roof['collective_s'] * 1e3:.3f} ms at H100 rates) "
+        f"{'ok' if good else 'FAIL'} [{card_text}]")
+    ok &= good
+    lo_f, hi_f, slack = MEM_BAND
+    good = lo_f * peak_pred <= peak_card <= hi_f * peak_pred + slack
+    log(f"[dist] 14a: peak device memory of the step {gb(peak_card)} ({peak_card} B) "
+        f"against the dry run's {gb(peak_pred)} ({peak_pred} B): ratio "
+        f"{peak_card / peak_pred:.4f}, band [{lo_f}, {hi_f} + {slack // 2 ** 20} MiB] "
+        f"{'ok' if good else 'FAIL'} [{card_text}]")
+    ok &= good
+    share = roof["model_flops"] / (train_step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    log(f"[dist] 14a: model_flops_analytic {roof['model_flops']:.6e} FLOP over phase "
+        f"13's kernel step ({train_step_ms:.3f} ms) = {share * 100:.3f}% of "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s; useful FLOP ratio "
+        f"{roof['useful_flops_ratio']:.4f}; roofline mfu bound {roof['mfu_bound']:.4f} "
+        f"[{card_text}]")
+    del state, params, batch, m, step, counter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 14b: two ranks on the card
+    with tempfile.TemporaryDirectory() as d:
+        opts = {"arch": "smollm_360m", "smoke": False, "device": "cuda:0",
+                "store": f"{d}/store", "out": f"{d}/rank", "ckpt": f"{d}/ckpt",
+                **run}
+        t0 = time.perf_counter()
+        ranks = run_ranks(opts)
+        ranks_s = time.perf_counter() - t0
+    n = run["ranks"]
+    want_k2 = cfg.n_layers * 2 * k
+    for rr in ranks:
+        good = (rr["ok"] and rr["k2_dp_step"] == want_k2
+                and rr["k2_elastic_step"] == want_k2)
+        log(f"[dist] 14b: rank {rr['rank']}: batch {rr['batch_spec']}; K2 launches "
+            f"{rr['k2_dp_step']} and {rr['k2_elastic_step']} in the checked steps (want "
+            f"{cfg.n_layers} layers x 2 (remat) x {k} microbatches = {want_k2}); "
+            f"compressed all-reduce worst {rr['compressed_worst']:.4f} of its bound; "
+            f"GPipe {rr['gpipe']}; restored as {rr['restored_placements']} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    r0 = ranks[0]
+    tokens = B * S
+    bubble = [1 - rr["gpipe"]["busy_s"] / rr["gpipe"]["wall_s"] for rr in ranks]
+    log(f"[dist] 14b: data-parallel step {r0['step_s'] * 1e3:.3f} ms "
+        f"({tokens / r0['step_s']:.0f} tok/s over both ranks), worst |dp - one| / "
+        f"bound {r0['dp_ratio']}, after the elastic restore {r0['elastic_ratio']}; "
+        f"all-reduce of the {gb(r0['grad_bytes'])} gradient: exact "
+        f"{r0['exact_allreduce_s'] * 1e3:.3f} ms, int8-grid compressed "
+        f"{r0['compressed_allreduce_s'] * 1e3:.3f} ms (gloo through host memory); "
+        f"GPipe 2 stages x 4 microbatches over {r0['gpipe']['transport']} "
+        f"transport: bubble {[round(b, 4) for b in bubble]} (schedule "
+        f"{(n - 1) / (4 + n - 1):.2f}), hidden states |diff| {r0['gpipe_diff']:.3e} "
+        f"({r0['gpipe_ratio']:.4f} of the bf16 limit); children {ranks_s:.1f} s "
+        f"[{card_text}]")
+    if not ok:
+        raise AssertionError("the distribution phase failed its checks")
+    log(f"[dist] phase time {time.perf_counter() - t_phase:.1f} s")
+    return {"k2": sum(rr["k2_dp_step"] + rr["k2_elastic_step"] for rr in ranks),
+            "trace_s": r["wall_s"]}
+
+
 def card() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -3470,10 +4032,21 @@ def main() -> int:
     vlm = phase_vlm(dev, flush)
     gc.collect()
     torch.cuda.empty_cache()
-    grads = phase_grads(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(dev, flush)
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dry_"))
+    dry = (start_dry_run(dry_dir / "cell.json"), dry_dir / "cell.json")
+    try:
+        grads = phase_grads(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = phase_train(dev, flush)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist = phase_distribution(dev, flush, train["step_ms"], dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
     log(f"[env] whole run {time.perf_counter() - t_start:.1f} s")
 
     k1_paths = {"smollm-360m serve": serve["launches"],
@@ -3485,7 +4058,9 @@ def main() -> int:
     k2_paths = {**prefill["by_path"], "deepseek-moe-16b forward": moe["fwd_k2"],
                 "recurrentgemma-9b forward": hybrid["fwd_k2"],
                 "qwen2-vl-7b forward": vlm["fwd_k2"],
-                "smollm-360m train": train["k2"], **grads["by_path"]["flash_attention"]}
+                "smollm-360m train": train["k2"],
+                "smollm-360m data-parallel train, 2 ranks": dist["k2"],
+                **grads["by_path"]["flash_attention"]}
     k2_share.update({"deepseek-moe-16b forward": moe["k2_share"],
                      "recurrentgemma-9b forward": hybrid["k2_share"],
                      "qwen2-vl-7b forward": vlm["k2_share"]})

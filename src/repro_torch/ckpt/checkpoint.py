@@ -21,9 +21,11 @@ reach numpy through an integer view of the same width, so no
   optimizer updates params and moments in place while the writer runs,
   and ``.cpu()`` of a CPU tensor is the tensor itself.
 * Restore: into the structure of a target tree, each leaf cast to the
-  target leaf's dtype and put on its device. The JAX restore's
-  ``shardings`` (elastic re-placement on a new mesh) waits for the
-  distribution slice.
+  target leaf's dtype and put on its device; with ``shardings`` (a tree
+  of DTensor placements) and ``mesh``, each leaf becomes a DTensor on that
+  mesh (elastic rescale: the checkpoint is mesh-agnostic, so any mesh can
+  take it). Every rank reads the whole file and keeps its own block: no
+  collective runs.
 """
 
 from __future__ import annotations
@@ -133,27 +135,42 @@ def _load(path: pathlib.Path, entry: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_checkpoint(directory: str, step: int, target: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, target: Any, *,
+                       shardings: Any = None, mesh: Any = None) -> Any:
     """The checkpoint of ``step`` in the structure of ``target`` (a tree of
-    tensors: each leaf restored in its dtype, on its device)."""
+    tensors, or ``meta`` stand-ins: each leaf restored in its dtype, on its
+    device). ``shardings`` (a tree like ``target``; leaves DTensor
+    placements, or None for a plain tensor) re-places each leaf on
+    ``mesh``, on the mesh's device type."""
+    from repro_torch.runtime.sharding import from_full
+
+    if shardings is not None and mesh is None:
+        raise ValueError("restoring with shardings needs the mesh they are on")
     path = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
     by_key = {e["key"]: e for e in manifest["keys"]}
 
-    def build(tree: Any, prefix: tuple) -> Any:
+    def build(tree: Any, sh: Any, prefix: tuple) -> Any:
         if isinstance(tree, dict):
-            return {k: build(tree[k], prefix + (str(k),)) for k in sorted(tree)}
+            return {k: build(tree[k], None if sh is None else sh[k],
+                             prefix + (str(k),)) for k in sorted(tree)}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(build(v, prefix + (str(i),))
+            return type(tree)(build(v, None if sh is None else sh[i],
+                                    prefix + (str(i),))
                               for i, v in enumerate(tree))
         key = "/".join(prefix)
         t = _load(path, by_key[key])
         if tuple(t.shape) != tuple(tree.shape):
             raise ValueError(f"shape mismatch for {key}: {tuple(t.shape)} vs "
                              f"{tuple(tree.shape)}")
-        return t.to(device=tree.device, dtype=tree.dtype)
+        if sh is None:
+            device = (torch.device(mesh.device_type)
+                      if mesh is not None and tree.device.type == "meta"
+                      else tree.device)
+            return t.to(device=device, dtype=tree.dtype)
+        return from_full(t.to(tree.dtype), mesh, sh, device=mesh.device_type)
 
-    return build(target, ())
+    return build(target, shardings, ())
 
 
 class AsyncCheckpointer:

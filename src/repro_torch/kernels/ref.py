@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.runtime.sharding import einsum
+
 NEG = -1.0e30
 
 
@@ -45,7 +47,7 @@ def flash_decode_ref(q, k_cache, v_cache, cache_pos, q_pos, *,
     KV, W = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     qr = q.reshape(B, KV, G, D).float() * (D ** -0.5)
-    s = torch.einsum("bkgd,bkwd->bkgw", qr, k_cache.float())
+    s = einsum("bkgd,bkwd->bkgw", qr, k_cache.float())
     qp = q_pos[:, None]
     valid = (cache_pos >= 0) & (cache_pos <= qp)
     if window is not None:
@@ -54,7 +56,7 @@ def flash_decode_ref(q, k_cache, v_cache, cache_pos, q_pos, *,
     s = torch.where(valid, s, NEG)
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid, p, 0.0)
-    o = torch.einsum("bkgw,bkwd->bkgd", p, v_cache.float())
+    o = einsum("bkgw,bkwd->bkgd", p, v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
 
 

@@ -1,5 +1,7 @@
-"""Synthetic model inputs: full-sequence batches (prefill) and, for decode,
-a fresh cache with tokens and positions.
+"""Model inputs: ``meta``-tensor stand-ins for the dry run (shapes and
+dtypes, no storage: the counterpart of the JAX ``ShapeDtypeStruct``s) and
+synthetic full-sequence batches (prefill) and, for decode, a fresh cache
+with tokens and positions.
 
 Batch layout, as in ``repro/launch/inputs.py``:
   prefill: {tokens [B,S] int32 | embeds [B,S,Din],
@@ -16,8 +18,79 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.base import init_tree, torch_dtype
+from repro_torch.models.base import abstract_tree, init_tree, torch_dtype
 from repro_torch.models.registry import build_model
+
+
+def _spec(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def batch_specs(cfg, B: int, S: int, *, with_labels: bool,
+                device="meta") -> dict:
+    """{tokens [B,S] int32 | embeds [B,S,Din] compute dtype, positions
+    [B,S] ([3,B,S] under M-RoPE) int32[, labels [B,S] int32]}."""
+    specs: dict[str, Any] = {}
+    if cfg.frontend == "token":
+        specs["tokens"] = _spec((B, S), torch.int32, device)
+    else:
+        d_in = cfg.frontend_dim or cfg.d_model
+        specs["embeds"] = _spec((B, S, d_in), torch_dtype(cfg.compute_dtype),
+                                device)
+    pos = (3, B, S) if cfg.mrope_sections is not None else (B, S)
+    specs["positions"] = _spec(pos, torch.int32, device)
+    if with_labels:
+        specs["labels"] = _spec((B, S), torch.int32, device)
+    return specs
+
+
+def batch_axes(cfg, *, with_labels: bool) -> dict:
+    """The logical axes of each key of ``batch_specs``: the batch dim is
+    "batch" (under M-RoPE the positions' second)."""
+    axes: dict[str, Any] = {}
+    if cfg.frontend == "token":
+        axes["tokens"] = ("batch", None)
+    else:
+        axes["embeds"] = ("batch", None, None)
+    axes["positions"] = ((None, "batch", None) if cfg.mrope_sections is not None
+                         else ("batch", None))
+    if with_labels:
+        axes["labels"] = ("batch", None)
+    return axes
+
+
+def decode_axes(cfg) -> tuple[Any, Any]:
+    """The logical axes of ``decode_specs``' tokens (or embeddings) and
+    positions."""
+    tok = ("batch",) if cfg.frontend == "token" else ("batch", None, None)
+    pos = (None, "batch") if cfg.mrope_sections is not None else ("batch",)
+    return tok, pos
+
+
+def decode_specs(cfg, B: int, max_len: int, device="meta") -> tuple[Any, Any, Any]:
+    """(cache, tokens [B] int32 | embeds [B,1,Din], positions [B] | [3,B])."""
+    model = build_model(cfg)
+    cache = abstract_tree(model.cache_specs(B, max_len), cfg.param_dtype, device)
+    if cfg.frontend == "token":
+        tok = _spec((B,), torch.int32, device)
+    else:
+        d_in = cfg.frontend_dim or cfg.d_model
+        tok = _spec((B, 1, d_in), torch_dtype(cfg.compute_dtype), device)
+    pos = (3, B) if cfg.mrope_sections is not None else (B,)
+    return cache, tok, _spec(pos, torch.int32, device)
+
+
+def input_specs(cfg, shape, device="meta") -> dict:
+    """The stand-ins of an (arch, shape) cell's inputs."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"batch": batch_specs(cfg, B, S, with_labels=True, device=device)}
+    if shape.kind == "prefill":
+        return {"batch": batch_specs(cfg, B, S, with_labels=False, device=device)}
+    if shape.kind == "decode":
+        cache, tok, pos = decode_specs(cfg, B, S, device)
+        return {"cache": cache, "tokens": tok, "positions": pos}
+    raise ValueError(shape.kind)
 
 
 def make_batch(cfg, B: int, S: int, generator: torch.Generator, device, *,

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import apply_rope
+from repro_torch.runtime.sharding import einsum, is_dtensor
 
 _NEG = -1.0e30
 
@@ -74,13 +75,13 @@ def _reference_attention(q, k, v, mode, window):
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     qr = (q * (D ** -0.5)).reshape(B, S, KV, G, D)
-    s = torch.einsum("bskgd,btkd->bkgst", qr.float(), k.float())
+    s = einsum("bskgd,btkd->bkgst", qr.float(), k.float())
     dev = q.device
     m = _mask(torch.arange(S, device=dev), torch.arange(T, device=dev), mode,
               window)
     s = torch.where(m, s, _NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    o = einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(B, S, H, D).to(q.dtype)
 
 
@@ -104,7 +105,7 @@ def _chunked_attention(q, k, v, mode, window, chunk):
     for ci in range(nc):
         ki = k[:, ci * chunk:(ci + 1) * chunk].float()
         vi = v[:, ci * chunk:(ci + 1) * chunk].float()
-        s = torch.einsum("bskgd,bckd->bkgsc", qr, ki)
+        s = einsum("bskgd,bckd->bkgsc", qr, ki)
         kv_pos = ci * chunk + torch.arange(chunk, device=dev)
         valid = _mask(q_pos, kv_pos, mode, window) & (kv_pos < T)[None, :]
         s = torch.where(valid, s, _NEG)
@@ -113,7 +114,7 @@ def _chunked_attention(q, k, v, mode, window, chunk):
         p = torch.where(valid, p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgsc,bckd->bkgsd", p, vi)
+        acc = acc * corr[..., None] + einsum("bkgsc,bckd->bkgsd", p, vi)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
@@ -123,7 +124,13 @@ def _chunked_attention(q, k, v, mode, window, chunk):
 def multihead_attention(q, k, v, *, mode: str = "causal",
                         window: Optional[int] = None,
                         backend: str = "chunked", chunk: int = 1024):
-    """q [B,S,H,D]; k,v [B,T,KV,D] with H % KV == 0 (GQA)."""
+    """q [B,S,H,D]; k,v [B,T,KV,D] with H % KV == 0 (GQA). DTensors run
+    on each rank's shards (``kernels/ops.py attention_on_shards``)."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        return kops.attention_on_shards(
+            lambda q, k, v: multihead_attention(q, k, v, mode=mode, window=window,
+                                                backend=backend, chunk=chunk),
+            q, k, v)
     if backend == "reference":
         return _reference_attention(q, k, v, mode, window)
     if backend not in ("chunked", "pallas"):
@@ -145,9 +152,9 @@ def attention_block(params: dict, cfg, sharder, x: torch.Tensor,
     wk = sharder.gather(params["wk"].to(dt), "embed", "kv_heads", None)
     wv = sharder.gather(params["wv"].to(dt), "embed", "kv_heads", None)
     wo = sharder.gather(params["wo"].to(dt), "heads", None, "embed")
-    q = torch.einsum("bsd,dhk->bshk", x, wq)
-    k = torch.einsum("bsd,dhk->bshk", x, wk)
-    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    q = einsum("bsd,dhk->bshk", x, wq)
+    k = einsum("bsd,dhk->bshk", x, wk)
+    v = einsum("bsd,dhk->bshk", x, wv)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -161,7 +168,7 @@ def attention_block(params: dict, cfg, sharder, x: torch.Tensor,
         backend=cfg.attn_backend, chunk=cfg.attn_chunk,
     )
     o = sharder.constrain(o, "act_batch", None, "act_heads", None)
-    return torch.einsum("bshk,hkd->bsd", o, wo)
+    return einsum("bshk,hkd->bsd", o, wo)
 
 
 # --------------------------------------------------------------------------- #
@@ -183,6 +190,38 @@ def cache_specs(cfg, batch: int, max_len: int, *, window: Optional[int]) -> dict
     }
 
 
+def ring_write(buf, slots: torch.Tensor, value: torch.Tensor) -> None:
+    """buf[b, slots[b]] = value[b] for every row b, in place, on a DTensor
+    ring (the cache split along its batch and its ring dim, "kv_batch" and
+    "kv_seq"), on each rank's block: the values and slots move to the
+    ring's batch split, and each rank writes the rows whose slot falls in
+    its part of the ring (the others write their slot's own value back: no
+    shape depends on the data)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = buf.device_mesh
+    as_dt = lambda t: t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    coord = mesh.get_coordinate()
+    v_pl, s_pl, ring = [], [], 0
+    for i, p in enumerate(buf.placements):
+        d = p.dim % buf.ndim if isinstance(p, Shard) else None
+        v_pl.append(Shard(0) if d == 0 else Shard(d - 1) if d and d > 1 else Replicate())
+        s_pl.append(Shard(0) if d == 0 else Replicate())
+        if d == 1:
+            ring = ring * mesh.size(i) + coord[i]
+    local = buf.to_local()
+    w0 = ring * local.shape[1]
+    vals = as_dt(value).redistribute(mesh, v_pl).to_local().to(buf.dtype)
+    rel = as_dt(slots).redistribute(mesh, s_pl).to_local() - w0
+    hit = (rel >= 0) & (rel < local.shape[1])
+    idx = rel.clamp(0, local.shape[1] - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    keep = local[bidx, idx]
+    hit = hit.reshape(hit.shape + (1,) * (keep.ndim - 1))
+    local[bidx, idx] = torch.where(hit, vals, keep)
+
+
 def attention_decode(params: dict, cfg, sharder, x: torch.Tensor,
                      cache: dict, positions: torch.Tensor, *,
                      window: Optional[int] = None) -> tuple[torch.Tensor, dict]:
@@ -201,9 +240,9 @@ def attention_decode(params: dict, cfg, sharder, x: torch.Tensor,
     dt = x.dtype
     B = x.shape[0]
     W = cache["k"].shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -212,14 +251,19 @@ def attention_decode(params: dict, cfg, sharder, x: torch.Tensor,
     k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
 
     slots = (positions % W).long()
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slots] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slots] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][bidx, slots] = positions.to(torch.int32)
+    if is_dtensor(cache["k"]):
+        ring_write(cache["k"], slots, k[:, 0])
+        ring_write(cache["v"], slots, v[:, 0])
+        ring_write(cache["pos"], slots, positions)
+    else:
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, slots] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slots] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, slots] = positions.to(torch.int32)
 
     # a [3,B] tensor's stream 0 may be strided: K1 takes a contiguous q_pos
     o = kops.flash_decode(q[:, 0].contiguous(), cache["k"], cache["v"],
                           cache["pos"], positions.to(torch.int32).contiguous(),
                           window=window)                        # [B,H,D]
-    y = torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"].to(dt))
+    y = einsum("bshk,hkd->bsd", o[:, None], params["wo"].to(dt))
     return y, cache

@@ -6,6 +6,11 @@ torch tensors with the JAX tree's exact keys.
 ``np.asarray`` on each leaf) into the port, which is how the parity tests
 hand both packages the same weights. Both place their tensors on the CUDA
 card unless the caller names another device (``resolve_device``).
+
+For the dry run a spec tree also becomes ``meta`` tensors
+(``abstract_tree``: shapes and dtypes, no storage), its logical axes
+(``axes_tree``) and the DTensor placements a ``Sharder`` resolves them to
+(``shardings_tree``).
 """
 
 from __future__ import annotations
@@ -151,8 +156,35 @@ def init_tree(generator: torch.Generator, specs: Any,
     return build(specs)
 
 
+def _resolve_dtype(spec: ParamSpec, default: str) -> torch.dtype:
+    return torch_dtype(spec.dtype or default)
+
+
+def abstract_tree(specs: Any, param_dtype: str = "float32", device="meta") -> Any:
+    """Stand-ins with each leaf's shape and resolved dtype and no storage:
+    tensors on the ``meta`` device (or, under a ``FakeTensorMode``, fake
+    tensors of ``device``)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=_resolve_dtype(s, param_dtype),
+                                          device=device), specs)
+
+
+def axes_tree(specs: Any) -> Any:
+    """The logical-axes tree mirroring the param tree."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+def shardings_tree(specs: Any, sharder, param_dtype: str = "float32") -> Any:
+    """Each leaf's DTensor placements on ``sharder``'s mesh."""
+    return tree_map(lambda s: sharder.sharding(s.shape, s.axes), specs)
+
+
 def param_count(specs: Any) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+def param_bytes(specs: Any, param_dtype: str = "float32") -> int:
+    return sum(math.prod(s.shape) * _resolve_dtype(s, param_dtype).itemsize
+               for s in tree_leaves(specs))
 
 
 # --------------------------------------------------------------------------- #

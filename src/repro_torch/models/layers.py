@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.base import ParamSpec
+from repro_torch.runtime.sharding import einsum, is_dtensor
 
 
 # --------------------------------------------------------------------------- #
@@ -41,11 +42,33 @@ def unembed_spec(d: int, vocab: int) -> ParamSpec:
 def embed(tokens: torch.Tensor, tok_w: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
     # gather first, then cast: the same values as casting the whole table
+    if is_dtensor(tok_w) and all(p.is_replicate() for p in tok_w.placements):
+        return _replicated_lookup(tokens, tok_w, compute_dtype)
     return tok_w[tokens.long()].to(compute_dtype)
 
 
+def _replicated_lookup(tokens, tok_w, compute_dtype):
+    """The lookup in a replicated table, on each rank's tokens: the rows
+    stay where the tokens are, and the table's gradient is each rank's
+    partial sum (DTensor's own index would gather the gradient rows of
+    every rank and scatter them all on each)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    tp = (tokens.placements if is_dtensor(tokens)
+          else (Replicate(),) * tok_w.device_mesh.ndim)
+    grad = tuple(Replicate() if p.is_replicate() else Partial() for p in tp)
+    return local_map(lambda t, w: w[t.long()].to(compute_dtype),
+                     out_placements=list(tp),
+                     in_placements=(tuple(tp) if is_dtensor(tokens) else None,
+                                    tuple(tok_w.placements)),
+                     in_grad_placements=(tuple(tp) if is_dtensor(tokens) else None,
+                                         grad),
+                     device_mesh=tok_w.device_mesh)(tokens, tok_w)
+
+
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    return einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
 
 # --------------------------------------------------------------------------- #
@@ -108,14 +131,14 @@ def mlp_specs(d: int, ff: int, act: str) -> dict:
 def mlp(params: dict, x: torch.Tensor, act: str, sharder=None) -> torch.Tensor:
     dt = x.dtype
     if act == "silu":
-        g = torch.einsum("bsd,df->bsf", x, params["gate"].to(dt))
-        u = torch.einsum("bsd,df->bsf", x, params["up"].to(dt))
+        g = einsum("bsd,df->bsf", x, params["gate"].to(dt))
+        u = einsum("bsd,df->bsf", x, params["up"].to(dt))
         h = F.silu(g) * u
-        return torch.einsum("bsf,fd->bsd", h, params["down"].to(dt))
-    h = torch.einsum("bsd,df->bsf", x, params["w1"].to(dt))
+        return einsum("bsf,fd->bsd", h, params["down"].to(dt))
+    h = einsum("bsd,df->bsf", x, params["w1"].to(dt))
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h + params["b1"].to(dt), approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, params["w2"].to(dt)) \
+    return einsum("bsf,fd->bsd", h, params["w2"].to(dt)) \
         + params["b2"].to(dt)
 
 
@@ -127,4 +150,4 @@ def frontend_proj_spec(d_in: int, d: int) -> ParamSpec:
 
 
 def frontend_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsi,id->bsd", x, w.to(x.dtype))
+    return einsum("bsi,id->bsd", x, w.to(x.dtype))

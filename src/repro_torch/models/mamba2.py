@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import rmsnorm
+from repro_torch.runtime.sharding import einsum
 
 
 def _dims(cfg):
@@ -98,19 +99,19 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk):
         Cq = Cm[:, s0:s0 + Q].float()
         cum = torch.cumsum(dtq * A, dim=1)                 # [B,Q,H], negative
         # intra-chunk: scores_ij = (C_i.B_j) * exp(cum_i - cum_j) * dt_j
-        CB = torch.einsum("bin,bjn->bij", Cq, Bq)          # [B,Q,Q]
+        CB = einsum("bin,bjn->bij", Cq, Bq)                # [B,Q,Q]
         decay = torch.exp(torch.clamp(cum[:, :, None, :] - cum[:, None, :, :],
                                       -60.0, 0.0))         # [B,Q,Q,H]
         scores = CB[..., None] * decay * dtq[:, None, :, :]
         scores = torch.where(tri[None, :, :, None], scores, 0.0)
-        y_intra = torch.einsum("bijh,bjhp->bihp", scores, xq32)
+        y_intra = einsum("bijh,bjhp->bihp", scores, xq32)
         # cross-chunk: y_i += exp(cum_i) * C_i . h_in
-        y_cross = torch.einsum("bin,bhpn->bihp", Cq, h) * torch.exp(cum)[..., None]
+        y_cross = einsum("bin,bhpn->bihp", Cq, h) * torch.exp(cum)[..., None]
         # state update: h' = exp(cum_Q) h + sum_j exp(cum_Q - cum_j) dt_j B_j x_j^T
         last = cum[:, -1:, :]                              # [B,1,H]
         w = torch.exp(torch.clamp(last - cum, -60.0, 0.0)) * dtq
         h = (torch.exp(last[:, 0])[:, :, None, None] * h
-             + torch.einsum("bjh,bjn,bjhp->bhpn", w, Bq, xq32))
+             + einsum("bjh,bjn,bjhp->bhpn", w, Bq, xq32))
         ys.append((y_intra + y_cross).to(x.dtype))
     return torch.cat(ys, dim=1), h
 
@@ -125,14 +126,14 @@ def _scan(xh, dtv, A, Bm, Cm, chunk):
 def _in_proj(params, x):
     """z, x-branch, B, C and dt (fp32, softplus) of x [B,S,d]."""
     dt_ = x.dtype
-    z = torch.einsum("bsd,di->bsi", x, params["wz"].to(dt_))
-    xi = torch.einsum("bsd,di->bsi", x, params["wx"].to(dt_))
-    Bm = torch.einsum("bsd,dn->bsn", x, params["wB"].to(dt_))
-    Cm = torch.einsum("bsd,dn->bsn", x, params["wC"].to(dt_))
+    z = einsum("bsd,di->bsi", x, params["wz"].to(dt_))
+    xi = einsum("bsd,di->bsi", x, params["wx"].to(dt_))
+    Bm = einsum("bsd,dn->bsn", x, params["wB"].to(dt_))
+    Cm = einsum("bsd,dn->bsn", x, params["wC"].to(dt_))
     # torch returns x itself past 20, where log(1 + exp(x)) rounds to x
     # in fp32 anyway: the values of jax.nn.softplus
     dtv = F.softplus(
-        torch.einsum("bsd,dh->bsh", x, params["wdt"].to(dt_)).float()
+        einsum("bsd,dh->bsh", x, params["wdt"].to(dt_)).float()
         + params["dt_bias"].float())
     return z, xi, Bm, Cm, dtv
 
@@ -157,7 +158,7 @@ def mamba2_block(params: dict, cfg, sharder, x: torch.Tensor, *,
     y = y.reshape(B, S, d_inner)
     # gated RMSNorm (mamba2): norm(y) * silu(z)
     y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
-    out = torch.einsum("bsi,id->bsd", y, params["wo"].to(dt_))
+    out = einsum("bsi,id->bsd", y, params["wo"].to(dt_))
     if return_state:
         return out, h_final
     return out
@@ -190,19 +191,19 @@ def mamba2_decode(params: dict, cfg, sharder, x: torch.Tensor, cache: dict):
     conv = cache["conv"]
     conv_in = torch.cat([conv, xi[:, None, :].to(conv.dtype)], dim=1)
     w = params["conv_w"].to(dt_)  # [K, Ci]
-    conv_out = torch.einsum("bki,ki->bi", conv_in.to(dt_), w) + params["conv_b"].to(dt_)
+    conv_out = einsum("bki,ki->bi", conv_in.to(dt_), w) + params["conv_b"].to(dt_)
     xi = F.silu(conv_out)
     conv.copy_(conv_in[:, 1:, :])
 
     A = -torch.exp(params["A_log"].float())
     xh = xi.reshape(B, nh, hd).float()
     a = torch.exp(dtv * A)  # [B,H]
-    h = cache["h"] * a[:, :, None, None] + torch.einsum(
+    h = cache["h"] * a[:, :, None, None] + einsum(
         "bh,bn,bhp->bhpn", dtv, Bm.float(), xh)
     cache["h"].copy_(h)
-    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h)
+    y = einsum("bn,bhpn->bhp", Cm.float(), h)
     y = y + xh * params["D"].float()[None, :, None]
     y = y.reshape(B, d_inner).to(dt_)
     y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
-    out = torch.einsum("bi,id->bd", y, params["wo"].to(dt_))[:, None, :]
+    out = einsum("bi,id->bd", y, params["wo"].to(dt_))[:, None, :]
     return out, cache

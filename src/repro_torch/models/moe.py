@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import mlp, mlp_specs
+from repro_torch.runtime.sharding import einsum
 
 
 def moe_specs(cfg) -> dict:
@@ -73,7 +74,7 @@ def moe_block(params: dict, cfg, sharder, x: torch.Tensor, *,
     dt = x.dtype
 
     # ---- routing (fp32) ------------------------------------------------- #
-    logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
+    logits = einsum("bsd,de->bse", x.float(), params["router"].float())
     probs = torch.softmax(logits, dim=-1)
     gate_vals, eidx = top_k_gates(probs, K)                     # [B,S,K]
 
@@ -96,7 +97,7 @@ def moe_block(params: dict, cfg, sharder, x: torch.Tensor, *,
     elif impl == "onehot":  # reference; small shapes only
         disp = (F.one_hot(eidx, E)[..., None] * F.one_hot(pos_k.clamp_max(C - 1), C)[..., None, :]
                 * keep_k[..., None, None]).float().sum(2)       # [B,S,E,C]
-        x_e = torch.einsum("bsec,bsd->ebcd", disp, x.float()).to(dt)
+        x_e = einsum("bsec,bsd->ebcd", disp, x.float()).to(dt)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
     x_e = x_e.reshape(E, B * C, d)
@@ -113,12 +114,12 @@ def moe_block(params: dict, cfg, sharder, x: torch.Tensor, *,
         slot = torch.where(keep_k, slot, E * B * C - 1)
         vals = out_e.reshape(E * B * C, d)[slot]                # [B,S,K,d]
         gates = torch.where(keep_k, gate_vals, 0.0).to(dt)
-        y = torch.einsum("bskd,bsk->bsd", vals, gates)
+        y = einsum("bskd,bsk->bsd", vals, gates)
     else:
         cw = (F.one_hot(eidx, E)[..., None] * F.one_hot(pos_k.clamp_max(C - 1), C)[..., None, :]
               * (gate_vals * keep_k)[..., None, None]).float().sum(2)
-        y = torch.einsum("bsec,ebcd->bsd", cw,
-                         out_e.reshape(E, B, C, d).float()).to(dt)
+        y = einsum("bsec,ebcd->bsd", cw,
+                   out_e.reshape(E, B, C, d).float()).to(dt)
 
     # ---- shared experts (deepseek) ---------------------------------------- #
     if cfg.n_shared_experts:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.base import ParamSpec
+from repro_torch.runtime.sharding import einsum, pointwise
 from repro_torch.models.mamba2 import _causal_conv
 
 
@@ -62,16 +63,17 @@ def _gates(params, xh):
     sigmoids run in xh's dtype (JAX rglru.py:62-72, which then casts them to
     fp32; here ``ref.rglru_decay_input`` or K5's gated entry casts)."""
     dt_ = xh.dtype
-    r = torch.sigmoid(torch.einsum("bshp,hpq->bshq", xh, params["wa"].to(dt_))
+    r = torch.sigmoid(einsum("bshp,hpq->bshq", xh, params["wa"].to(dt_))
                       + params["ba"].to(dt_))
-    i = torch.sigmoid(torch.einsum("bshp,hpq->bshq", xh, params["wx"].to(dt_))
+    i = torch.sigmoid(einsum("bshp,hpq->bshq", xh, params["wx"].to(dt_))
                       + params["bx"].to(dt_))
     return r, i
 
 
 def _log_a_base(params):
     """log sigmoid(lambda) [W] in fp32."""
-    return F.logsigmoid(params["lam"].float())
+    # elementwise, on each rank's shard (DTensor has no log_sigmoid rule)
+    return pointwise(F.logsigmoid, params["lam"].float())
 
 
 def _decay_and_input(params, xh):
@@ -132,14 +134,14 @@ def rglru_block(params: dict, cfg, sharder, x: torch.Tensor, h0=None, *,
     """Griffin recurrent block. x [B,S,d] -> y [B,S,d] (+ the final state
     if asked)."""
     dt_ = x.dtype
-    u = torch.einsum("bsd,dw->bsw", x, params["w_in"].to(dt_))
+    u = einsum("bsd,dw->bsw", x, params["w_in"].to(dt_))
     u = sharder.constrain(u, "act_batch", None, "act_mlp")
     u = _causal_conv(u, params["conv_w"].to(dt_), params["conv_b"].to(dt_))
     y, h_final = rglru_scan(params, cfg, u, h0)
     # jax.nn.gelu defaults to the tanh approximation
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_gate_branch"].to(dt_)),
+    gate = F.gelu(einsum("bsd,dw->bsw", x, params["w_gate_branch"].to(dt_)),
                   approximate="tanh")
-    out = torch.einsum("bsw,wd->bsd", y * gate, params["w_out"].to(dt_))
+    out = einsum("bsw,wd->bsd", y * gate, params["w_out"].to(dt_))
     if return_state:
         return out, h_final
     return out
@@ -165,10 +167,10 @@ def rglru_decode(params: dict, cfg, sharder, x: torch.Tensor, cache: dict):
     dt_ = x.dtype
     width, nh, hd = _heads(cfg)
     B = x.shape[0]
-    u = torch.einsum("bsd,dw->bsw", x, params["w_in"].to(dt_))[:, 0]
+    u = einsum("bsd,dw->bsw", x, params["w_in"].to(dt_))[:, 0]
     conv = cache["conv"]
     conv_in = torch.cat([conv, u[:, None, :].to(conv.dtype)], dim=1)
-    u = (torch.einsum("bkw,kw->bw", conv_in.to(dt_), params["conv_w"].to(dt_))
+    u = (einsum("bkw,kw->bw", conv_in.to(dt_), params["conv_w"].to(dt_))
          + params["conv_b"].to(dt_))
     conv.copy_(conv_in[:, 1:, :])
 
@@ -176,8 +178,8 @@ def rglru_decode(params: dict, cfg, sharder, x: torch.Tensor, cache: dict):
     h = a[:, 0] * cache["h"].reshape(B, nh, hd) + b[:, 0]
     cache["h"].copy_(h.reshape(B, width))
     y = h.reshape(B, width).to(dt_)
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", x,
-                               params["w_gate_branch"].to(dt_))[:, 0],
+    gate = F.gelu(einsum("bsd,dw->bsw", x,
+                         params["w_gate_branch"].to(dt_))[:, 0],
                   approximate="tanh")
-    out = torch.einsum("bw,wd->bd", y * gate, params["w_out"].to(dt_))
+    out = einsum("bw,wd->bd", y * gate, params["w_out"].to(dt_))
     return out[:, None, :], cache

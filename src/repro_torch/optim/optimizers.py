@@ -14,13 +14,14 @@ semantics. Where the JAX functions return new trees (and the trainer
 donates the old ones), these write params and state in place, under
 ``torch.no_grad()``, and return the same trees. The count is a 0-d int32
 tensor on the params' device and the bias corrections are computed there,
-so an update never waits for the host.
+so an update never waits for the host. DTensor params (a ``Sharder``
+with a mesh) get DTensor moments in their placements.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
@@ -41,8 +42,25 @@ def _count(params: Any) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
 
 
-def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+def _zeros(shape, like: torch.Tensor, dropped: Optional[int] = None) -> torch.Tensor:
+    """fp32 zeros of ``shape`` beside ``like``. For a DTensor ``like``, a
+    DTensor on its mesh in its placements, with dim ``dropped`` of
+    ``like`` (a factored moment's reduced dim) taken out: its shards become
+    replicas and the dims after it move down one."""
+    from repro_torch.runtime.sharding import is_dtensor
+
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+    from torch.distributed.tensor import Replicate, Shard, zeros
+
+    placements = []
+    for p in like.placements:
+        if isinstance(p, Shard) and dropped is not None:
+            d = p.dim % like.ndim
+            p = Replicate() if d == dropped else Shard(d - (d > dropped))
+        placements.append(p)
+    return zeros(shape, dtype=torch.float32, device_mesh=like.device_mesh,
+                 placements=placements)
 
 
 # --------------------------------------------------------------------------- #
@@ -88,8 +106,8 @@ def _factored(shape: tuple[int, ...]) -> bool:
 def adafactor_init(params: Any) -> dict:
     def per_param(p):
         if _factored(p.shape):
-            return {"vr": _zeros(p.shape[:-1], p),
-                    "vc": _zeros(p.shape[:-2] + p.shape[-1:], p)}
+            return {"vr": _zeros(p.shape[:-1], p, p.ndim - 1),
+                    "vc": _zeros(p.shape[:-2] + p.shape[-1:], p, p.ndim - 2)}
         return {"v": _zeros(p.shape, p)}
 
     return {"f": tree_map(per_param, params), "count": _count(params)}

@@ -6,7 +6,10 @@ decode token. Port of ``repro/train/step.py``.
 The train step is eager: the model's forward and ``torch.autograd.grad``
 of the loss, a microbatch at a time, with the gradients summed in fp32
 buffers (``accum_dtype``; not ``.grad``, which would sum a bf16 tree in
-bf16), then the optimizer's in-place update. On the card the forward runs
+bf16), then the optimizer's in-place update. Under a ``Sharder`` with a
+mesh the params and batch are DTensors: each op runs on the local shards,
+the microbatches split each rank's rows, and the gradients are reduced to
+their params' placements once, after the last microbatch. On the card the forward runs
 the hand-written kernels and their backward the plain paths the JAX model
 differentiates (``kernels/ops.py``).
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.models.base import torch_dtype, tree_leaves, tree_unflatten
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.runtime.sharding import is_dtensor
 from repro_torch.train.loss import lm_loss
 
 
@@ -46,22 +50,53 @@ def _loss_fn(model, sharder, params, batch):
     return loss, metrics
 
 
+def _chunks(x: torch.Tensor, k: int, axis: int) -> list:
+    """``x`` as ``k`` pieces along ``axis``. A DTensor sharded on ``axis``
+    is split in each rank's own rows (microbatch j is every rank's j-th
+    block, as a data-parallel rank splits its batch), so no rows move
+    between ranks."""
+    if is_dtensor(x) and any(getattr(p, "dim", None) == axis
+                             for p in x.placements):
+        from torch.distributed.tensor import DTensor
+
+        shape = list(x.shape)
+        shape[axis] //= k
+        stride = torch.empty(shape, device="meta").stride()
+        return [DTensor.from_local(piece, x.device_mesh, x.placements,
+                                   run_check=False, shape=torch.Size(shape),
+                                   stride=stride)
+                for piece in torch.chunk(x.to_local(), k, dim=axis)]
+    return list(torch.chunk(x, k, dim=axis))
+
+
 def _split_microbatches(batch: dict, k: int) -> list[dict]:
     """``batch`` as ``k`` microbatches of its rows (views). Every input
     splits along its first dim, but M-RoPE's [3,B,S] positions, which
     split along their second. The JAX split picks the axis by divisibility
     (step.py:46-55), so at k = 3 it splits the three position streams
-    instead (ROADMAP Queue 3, F4); here the axis follows the input."""
+    instead (ROADMAP Queue 3, F4); here the axis follows the input. A
+    batch-sharded DTensor splits each rank's rows (``_chunks``)."""
 
     def axis(key, x):
         return 1 if key == "positions" and x.ndim == 3 else 0
 
     for key, x in batch.items():
-        if x.ndim == 0 or x.shape[axis(key, x)] % k:
+        rows = (x.to_local() if is_dtensor(x) else x).shape[axis(key, x)] \
+            if x.ndim else 0
+        if x.ndim == 0 or rows % k:
             raise ValueError(f"cannot split {key} {tuple(x.shape)} into {k} "
                              f"microbatches")
-    parts = {key: torch.chunk(x, k, dim=axis(key, x)) for key, x in batch.items()}
+    parts = {key: _chunks(x, k, axis(key, x)) for key, x in batch.items()}
     return [{key: p[j] for key, p in parts.items()} for j in range(k)]
+
+
+def _reduced(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements: a data-parallel rank's
+    partial sum all-reduced (or reduce-scattered onto a sharded leaf).
+    A plain tensor is returned as it is."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(
@@ -89,6 +124,10 @@ def make_train_step(
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        with sharder.scope():
+            return _train_step(state, batch)
+
+    def _train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
@@ -96,19 +135,23 @@ def make_train_step(
         if microbatches == 1:
             grads, metrics = grads_of(params, leaves, batch)
         else:
-            grads = [torch.zeros(p.shape, dtype=adt, device=p.device)
-                     for p in leaves]
-            mlist = []
+            grads, mlist = None, []
             for mb in _split_microbatches(batch, microbatches):
                 g, m = grads_of(params, leaves, mb)
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi.to(adt))
+                if grads is None:  # the first microbatch's, in accum_dtype
+                    grads = [gi.to(adt, copy=True) for gi in g]
+                else:
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi.to(adt))
                 mlist.append(m)
                 del g
             for acc in grads:
                 acc.div_(microbatches)
             metrics = {k: torch.stack([m[k] for m in mlist]).mean(0)
                        for k in mlist[0]}
+        # data parallelism: sum the ranks' gradients once, after the
+        # microbatches (a no-op for plain tensors)
+        grads = [_reduced(g, p) for g, p in zip(grads, leaves)]
 
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
@@ -126,18 +169,26 @@ def make_train_step(
 def make_eval_step(model, sharder) -> Callable[[dict, dict], dict]:
     @torch.no_grad()
     def eval_step(params: dict, batch: dict) -> dict:
-        _, metrics = _loss_fn(model, sharder, params, batch)
+        with sharder.scope():
+            _, metrics = _loss_fn(model, sharder, params, batch)
         return metrics
 
     return eval_step
 
 
+def _no_grad(sharder):
+    """Inference mode; under a mesh, no_grad: a DTensor's view of a tensor
+    made outside inference mode (its params, its cache) cannot take a
+    version counter inside it."""
+    return torch.inference_mode() if sharder.mesh is None else torch.no_grad()
+
+
 def make_prefill_step(model, sharder) -> Callable[[dict, dict], torch.Tensor]:
     """Full-sequence forward (inference prefill): logits only."""
 
-    @torch.inference_mode()
     def prefill_step(params: dict, batch: dict) -> torch.Tensor:
-        logits, _ = model.forward(params, batch, sharder)
+        with _no_grad(sharder), sharder.scope():
+            logits, _ = model.forward(params, batch, sharder)
         return logits
 
     return prefill_step
@@ -146,9 +197,9 @@ def make_prefill_step(model, sharder) -> Callable[[dict, dict], torch.Tensor]:
 def make_serve_step(model, sharder) -> Callable[..., tuple[torch.Tensor, dict]]:
     """One decode token against a KV cache, updated in place."""
 
-    @torch.inference_mode()
     def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
                    positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        return model.decode_step(params, cache, tokens, positions, sharder)
+        with _no_grad(sharder), sharder.scope():
+            return model.decode_step(params, cache, tokens, positions, sharder)
 
     return serve_step

@@ -35,6 +35,7 @@ import pathlib
 import re
 import shutil
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -182,20 +183,27 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        #: (step, seconds of the host copy on the caller's thread, seconds
+        #: of the write on the background thread) of each save
+        self.times: list[tuple[int, float, float]] = []
 
     def save(self, state: Any, step: int) -> None:
         self.wait()
+        t0 = time.perf_counter()
         host_state = {key: (leaf.detach().to("cpu", copy=True)
                             if isinstance(leaf, torch.Tensor)
                             else np.array(leaf))
                       for key, leaf in _flatten(state).items()}
+        copy_s = time.perf_counter() - t0
 
         def write():
+            t1 = time.perf_counter()
             try:
                 save_checkpoint(host_state, self.directory, step,
                                 keep=self.keep)
             except BaseException as e:  # noqa: BLE001 — re-raised by wait()
                 self._error = e
+            self.times.append((step, copy_s, time.perf_counter() - t1))
 
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()

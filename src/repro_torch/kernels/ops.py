@@ -30,7 +30,9 @@ independently) or replicates them all, the kernel runs on each rank's
 shards (``local_map``) and its outputs are DTensors of the matching
 placements; any other placement (a split sequence, head dim or
 contraction, a partial sum) would need communication inside the kernel,
-and raises.
+and raises. Full-sequence attention and the grouped expert product first
+move their inputs to a plan of their own, the gathers GSPMD would insert
+(``attention_on_shards``, ``gmm_on_shards``).
 """
 
 from __future__ import annotations
@@ -239,6 +241,47 @@ def attention_on_shards(fn: Callable, q, k, v):
                      device_mesh=mesh)(q, k, v)
 
 
+def gmm_on_shards(fn: Callable, x, w):
+    """``fn(x, w)`` (the grouped product: x [E,R,D], w [E,D,F]) on each
+    rank's shards, where one is a DTensor. Per mesh dim the plan follows
+    x: split along its rows, w is made whole there (each rank's rows meet
+    every expert's weights; the FSDP gather GSPMD inserts) and its local
+    gradient is a partial sum; split along the experts, or whole while w
+    is split along its experts, both are split along the experts; else
+    both are whole. A split of the contraction dim D is gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.runtime.sharding import is_dtensor
+
+    mesh = next(a.device_mesh for a in (x, w) if is_dtensor(a))
+    x, w = (a if is_dtensor(a) else
+            DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for a in (x, w))
+    xp, wp, wg = [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        dx = px.dim % 3 if isinstance(px, Shard) else None
+        dw = pw.dim % 3 if isinstance(pw, Shard) else None
+        if dx == 1:
+            xp.append(Shard(1))
+            wp.append(Replicate())
+            wg.append(Partial())
+        elif dx == 0 or (dx is None and dw == 0):
+            for o in (xp, wp, wg):
+                o.append(Shard(0))
+        else:
+            for o in (xp, wp, wg):
+                o.append(Replicate())
+    if tuple(x.placements) != tuple(xp):
+        x = x.redistribute(mesh, xp)
+    if tuple(w.placements) != tuple(wp):
+        w = w.redistribute(mesh, wp)
+    return local_map(fn, out_placements=list(xp),
+                     in_placements=(tuple(xp), tuple(wp)),
+                     in_grad_placements=(tuple(xp), tuple(wg)),
+                     device_mesh=mesh)(x, w)
+
+
 def _whole(x, dim: int):
     """A DTensor made whole along ``dim`` (its other splits kept): the
     decode query's heads, when the ring's split has taken their mesh dim."""
@@ -328,8 +371,7 @@ class _MoeGmm(torch.autograd.Function):
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [E,C,D] (any row strides); w [E,D,F] -> [E,C,F] in x's dtype."""
     if _dt(x, w):
-        return _on_shards("moe_gmm", moe_gmm, (x, w),
-                          {"experts": ((0, 0), (0,))})
+        return gmm_on_shards(moe_gmm, x, w)
     if build.needs_grad(x, w):
         return _MoeGmm.apply(x, w)
     return _gmm.moe_gmm(x, w)

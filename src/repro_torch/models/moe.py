@@ -9,7 +9,10 @@ first, to keep position-in-expert cumsums shard-local), this one builds it
 expert-major, ``[E, B, C, d]``: viewed as ``[E, B*C, d]`` it is the
 grouped product's x as it is, so the three expert products run the
 hand-written kernel K3 (``ops.moe_gmm``) with no transposed copy. The
-values are the JAX layer's; only the buffer's axis order differs.
+values are the JAX layer's; only the buffer's axis order differs. As in
+JAX, a dropped (token, choice) goes to a trash row, so no shape depends
+on the routing. Under DTensors the per-row positions, dispatch and
+combine run on each rank's rows of the batch (``on_batch_shards``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import mlp, mlp_specs
-from repro_torch.runtime.sharding import einsum
+from repro_torch.runtime.sharding import einsum, on_batch_shards
 
 
 def moe_specs(cfg) -> dict:
@@ -65,6 +68,36 @@ def expert_positions(eidx: torch.Tensor, E: int, C: int):
     return pos, pos < C
 
 
+def _dispatch(x: torch.Tensor, eidx: torch.Tensor, pos_k: torch.Tensor,
+              keep_k: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """The expert-major buffer [E*B*C, d]: row (e*B + b)*C + p holds the
+    token of row b that took slot p of expert e, zeros where none did.
+    Every (token, choice) is copied, a dropped one into a trash row E*B*C
+    that is then cut off, so nothing here depends on the routing's data
+    (no mask, no ``nonzero``: no host sync and a traceable shape)."""
+    B, S, d = x.shape
+    K = eidx.shape[-1]
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    slot = torch.where(keep_k, (eidx * B + rows) * C + pos_k, E * B * C)
+    src = x[:, :, None, :].expand(B, S, K, d).reshape(B * S * K, d)
+    buf = torch.zeros((E * B * C + 1, d), dtype=x.dtype, device=x.device)
+    return buf.index_copy_(0, slot.reshape(-1), src)[:E * B * C]
+
+
+def _combine(out_e: torch.Tensor, eidx: torch.Tensor, pos_k: torch.Tensor,
+             keep_k: torch.Tensor, gate_vals: torch.Tensor, C: int) -> torch.Tensor:
+    """y [B,S,d]: each token's kept choices read back from the experts'
+    outputs out_e [E, B*C, d] and summed with their gates."""
+    B, S, K = eidx.shape
+    E, d = out_e.shape[0], out_e.shape[-1]
+    rows = torch.arange(B, device=out_e.device)[:, None, None]
+    slot = (eidx * B + rows) * C + pos_k
+    slot = torch.where(keep_k, slot, E * B * C - 1)
+    vals = out_e.reshape(E * B * C, d)[slot]                    # [B,S,K,d]
+    gates = torch.where(keep_k, gate_vals, 0.0).to(out_e.dtype)
+    return einsum("bskd,bsk->bsd", vals, gates)
+
+
 def moe_block(params: dict, cfg, sharder, x: torch.Tensor, *,
               impl: str = "scatter") -> tuple[torch.Tensor, dict]:
     """x: [B, S, d] -> (y [B, S, d], aux losses)."""
@@ -84,23 +117,20 @@ def moe_block(params: dict, cfg, sharder, x: torch.Tensor, *,
     aux_loss = cfg.moe_aux_loss * E * torch.sum(me * ce)
     z_loss = 1e-3 * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
-    pos_k, keep_k = expert_positions(eidx, E, C)                # [B,S,K]
-    rows = torch.arange(B, device=x.device)[:, None, None]
+    pos_k, keep_k = on_batch_shards(lambda e: expert_positions(e, E, C), x,
+                                    (eidx,), (0,), (0, 0))      # [B,S,K]
 
     if impl == "scatter":
-        # dispatch: each kept (token, choice) into its own slot of the
-        # expert-major buffer [E, B, C, d]; slots are distinct, so a copy
-        slot = ((eidx * B + rows) * C + pos_k)[keep_k]
-        src = x[:, :, None, :].expand(B, S, K, d)[keep_k]
-        x_e = torch.zeros((E * B * C, d), dtype=dt, device=x.device)
-        x_e.index_copy_(0, slot, src)
+        # JAX's ``where(keep, eidx, E)`` with ``mode="drop"``
+        x_e = on_batch_shards(lambda *a: _dispatch(*a, E, C).view(E, -1, d), x,
+                              (x, eidx, pos_k, keep_k), (0, 0, 0, 0), (1,))
     elif impl == "onehot":  # reference; small shapes only
         disp = (F.one_hot(eidx, E)[..., None] * F.one_hot(pos_k.clamp_max(C - 1), C)[..., None, :]
                 * keep_k[..., None, None]).float().sum(2)       # [B,S,E,C]
-        x_e = einsum("bsec,bsd->ebcd", disp, x.float()).to(dt)
+        x_e = einsum("bsec,bsd->ebcd", disp, x.float()).to(dt).reshape(E, B * C, d)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
-    x_e = x_e.reshape(E, B * C, d)
+    x_e = sharder.constrain(x_e, "act_experts", "act_batch", None)
 
     # ---- expert FFNs (SwiGLU) on K3 --------------------------------------- #
     g = kops.moe_gmm(x_e, params["wg"].to(dt))
@@ -110,11 +140,9 @@ def moe_block(params: dict, cfg, sharder, x: torch.Tensor, *,
 
     # ---- combine --------------------------------------------------------- #
     if impl == "scatter":
-        slot = (eidx * B + rows) * C + pos_k
-        slot = torch.where(keep_k, slot, E * B * C - 1)
-        vals = out_e.reshape(E * B * C, d)[slot]                # [B,S,K,d]
-        gates = torch.where(keep_k, gate_vals, 0.0).to(dt)
-        y = einsum("bskd,bsk->bsd", vals, gates)
+        y = on_batch_shards(lambda *a: _combine(*a, C), x,
+                            (out_e, eidx, pos_k, keep_k, gate_vals), (1, 0, 0, 0, 0),
+                            (0,))
     else:
         cw = (F.one_hot(eidx, E)[..., None] * F.one_hot(pos_k.clamp_max(C - 1), C)[..., None, :]
               * (gate_vals * keep_k)[..., None, None]).float().sum(2)

@@ -236,6 +236,35 @@ def pointwise(fn, x):
                      in_grad_placements=(pl,), device_mesh=x.device_mesh)(x)
 
 
+def on_batch_shards(fn, x, args: Sequence, dims: Sequence[int],
+                    out_dims: Sequence[int]):
+    """``fn(*args)``; where ``x`` is a DTensor, on each rank's rows of the
+    batch, for a per-row op that DTensor has no rule for (a scatter or
+    gather at data-dependent indices, as the MoE dispatch and combine). On
+    each mesh dim that splits ``x`` along its dim 0, arg j is split along
+    ``dims[j]`` and output k along ``out_dims[k]``; every other split of an
+    arg is gathered first, as GSPMD gathers around such an op. A single
+    output for one ``out_dims`` entry, else a tuple."""
+    if not is_dtensor(x):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows = [isinstance(p, Shard) and p.dim % x.ndim == 0 for p in x.placements]
+
+    def plan(d):
+        return tuple(Shard(d) if r else Replicate() for r in rows)
+
+    in_pl = tuple(plan(d) for d in dims)
+    moved = [a if tuple(a.placements) == pl else a.redistribute(mesh, pl)
+             for a, pl in zip(args, in_pl)]
+    out_pl = (list(plan(out_dims[0])) if len(out_dims) == 1
+              else tuple(plan(d) for d in out_dims))
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=in_pl, device_mesh=mesh)(*moved)
+
+
 def is_dtensor(x: Any) -> bool:
     return isinstance(x, DTensor)
 

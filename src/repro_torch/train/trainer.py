@@ -83,6 +83,8 @@ class Trainer:
         self.model = build_model(cfg)
         self.straggler = StragglerDetector()
         self.metrics_log: list[dict] = []
+        #: (step, host copy s, write s) of each checkpoint ``run`` saved
+        self.ckpt_times: list[tuple[int, float, float]] = []
         self._step_fn = make_train_step(
             self.model, self.sharder, microbatches=tcfg.microbatches,
             peak_lr=tcfg.peak_lr, warmup=tcfg.warmup, total_steps=tcfg.steps,
@@ -142,4 +144,5 @@ class Trainer:
             loader.stop()
             if ckpt:
                 ckpt.wait()
+                self.ckpt_times.extend(ckpt.times)
         return state

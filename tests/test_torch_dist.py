@@ -116,7 +116,8 @@ def _compressed(rank, n, tmp):
 def _four(rank, n, tmp):
     """The four-rank workloads, in one world (one spawn for the module)."""
     return {"compressed": _compressed(rank, n, tmp), "pipe": _pipe(rank, n, tmp),
-            "forward": _forward_2x2(rank, n, tmp)}
+            "forward": _forward_2x2(rank, n, tmp),
+            "forward_moe": _forward_2x2(rank, n, tmp, "deepseek_moe_16b")}
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +166,7 @@ def test_gpipe_forward_on_four_ranks_matches_the_sequential_composition(four_ran
         assert stats["ticks"] == 5 + 4 - 1 and stats["transport"] == "device"
 
 
-def _forward_2x2(rank, n, tmp):
+def _forward_2x2(rank, n, tmp, arch="smollm_360m"):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs.base import get_smoke
@@ -175,7 +176,7 @@ def _forward_2x2(rank, n, tmp):
     from repro_torch.runtime.sharding import Sharder
     from repro_torch.train.step import make_prefill_step
 
-    cfg = get_smoke("smollm_360m")
+    cfg = get_smoke(arch)
     model = build_model(cfg)
     specs = model.param_specs()
     params = init_tree(torch.Generator().manual_seed(0), specs, cfg.param_dtype, "cpu")
@@ -199,6 +200,19 @@ def test_forward_on_a_2x2_mesh_matches_one_device(four_ranks):
         assert out["wq"] == "(Shard(dim=1), Replicate())"  # embed on data; 3 heads stay whole
         scale = np.abs(out["want"]).max()
         np.testing.assert_allclose(out["got"], out["want"], rtol=0, atol=1e-5 * scale)
+
+
+def test_moe_forward_on_a_2x2_mesh_matches_one_device(four_ranks):
+    """deepseek-moe-16b smoke: the routing, the trash-row dispatch and the
+    combine run on each rank's rows of the batch
+    (``sharding.on_batch_shards``), K3's products on its experts and rows
+    (``ops.gmm_on_shards``). The repo's fp32 tolerance, 2e-5 of the
+    logits' scale (tests/test_kernels.py): the expert and shared-expert
+    products sum their terms in another order on a rank's shards; a
+    flipped routing choice would be off by far more."""
+    for out in (o["forward_moe"] for o in four_ranks):
+        scale = np.abs(out["want"]).max()
+        np.testing.assert_allclose(out["got"], out["want"], rtol=2e-5, atol=2e-5 * scale)
 
 
 def _restore(rank, n, tmp):

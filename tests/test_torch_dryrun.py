@@ -29,6 +29,9 @@ from repro_torch.launch.dryrun import probe_pair, run_cell
 
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN = ShapeConfig("train_smoke", 32, 8, "train")
+#: a smoke config's cells: each kind at a few tokens
+SMOKE_SHAPES = {s.name: s for s in (TRAIN, ShapeConfig("prefill_smoke", 32, 8, "prefill"),
+                                    ShapeConfig("decode_smoke", 64, 8, "decode"))}
 
 
 def assert_jax_keys(out):
@@ -101,10 +104,33 @@ def test_a_failing_cell_is_recorded_as_an_error(monkeypatch):
     assert "broken" in out["traceback"]
 
 
+@pytest.mark.parametrize("kind", SMOKE_SHAPES)
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "grok_1_314b"])
+def test_moe_cell_on_the_debug_mesh(arch, kind):
+    """The routing, dispatch and combine run on each rank's rows
+    (``sharding.on_batch_shards``), K3's products on its experts and rows
+    (``ops.gmm_on_shards``)."""
+    shape = SMOKE_SHAPES[kind]
+    out = run_cell(arch, shape, debug_mesh=True, cfg=get_smoke(arch),
+                   microbatches=2 if shape.kind == "train" else None, probes=False,
+                   verbose=False)
+    assert_jax_keys(out)
+
+
 def test_one_card_trace_counts_the_real_steps_flops():
     """The CPU twin of chip_smoke.py phase 14a: a one-card mesh traces the
     step on plain fake tensors; the real step's FlopCounterMode agrees to
     the FLOP."""
+    _one_card_flops("smollm_360m")
+
+
+def test_one_card_moe_trace_counts_the_real_steps_flops():
+    """The same for deepseek-moe-16b smoke: the trash-row dispatch and the
+    grouped products count as in the real step."""
+    _one_card_flops("deepseek_moe_16b")
+
+
+def _one_card_flops(arch):
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.inputs import make_batch
@@ -113,8 +139,8 @@ def test_one_card_trace_counts_the_real_steps_flops():
     from repro_torch.runtime.sharding import Sharder
     from repro_torch.train.step import init_train_state, make_train_step
 
-    cfg = get_smoke("smollm_360m")
-    out = run_cell("smollm_360m", TRAIN, microbatches=2, probes=False, cfg=cfg,
+    cfg = get_smoke(arch)
+    out = run_cell(arch, TRAIN, microbatches=2, probes=False, cfg=cfg,
                    mesh_shape=((1, 1), ("data", "model")), verbose=False)
     assert_jax_keys(out)
     assert out["full"]["collectives_raw"]["n_ops"] == 0

@@ -72,6 +72,13 @@ DISTRIBUTION = ["repro_torch.runtime.sharding", "repro_torch.runtime.dist",
                 "repro_torch.analysis.hlo", "repro_torch.analysis.roofline"]
 
 
+#: the twins of ``examples/`` (ROADMAP M12), named likewise
+EXAMPLES = ["repro_torch.examples", "repro_torch.examples.oversubscribed_serving",
+            "repro_torch.examples.co_execution_training",
+            "repro_torch.examples.nested_runtime_matmul",
+            "repro_torch.examples.quickstart"]
+
+
 @pytest.fixture(scope="module")
 def probe():
     """Every repro_torch module and chip_smoke.py imported in a subprocess
@@ -98,6 +105,19 @@ def test_training_module_imports_without_jax(module, probe):
 @pytest.mark.parametrize("module", DISTRIBUTION)
 def test_distribution_module_imports_without_jax(module, probe):
     assert module in probe["mods"]
+
+
+@pytest.mark.parametrize("module", EXAMPLES)
+def test_example_module_imports_without_jax(module, probe):
+    assert module in probe["mods"]
+
+
+def test_quickstart_is_a_copy_of_the_example():
+    """``examples/quickstart.py`` imports only ``repro.core``, so the port
+    carries it as the same mechanical copy as ``COPIED``."""
+    original = (ROOT / "examples" / "quickstart.py").read_text()
+    copy = (SRC / "repro_torch" / "examples" / "quickstart.py").read_text()
+    assert copy == re.sub(r"\brepro\.", "repro_torch.", original)
 
 
 def test_importing_the_port_touches_no_distributed_state_or_environment(probe):

@@ -239,3 +239,94 @@ def test_prefill_step_passes_the_forward_through():
     torch.testing.assert_close(
         make_prefill_step(model, TSharder(None))(params, batch), logits)
     assert sorted(aux) == ["moe_aux", "moe_z"]
+
+
+# --------------------------------------------------------------------------- #
+# the static dispatch (a trash row, no boolean mask)
+# --------------------------------------------------------------------------- #
+def _mask_dispatch(x, eidx, pos_k, keep_k, E, C):
+    """The boolean-mask dispatch the port had before the trash row: the kept
+    (token, choice) pairs picked out by ``[keep_k]`` (a data-dependent
+    ``nonzero``, a host sync on the card) and copied to their slots."""
+    B, S, d = x.shape
+    K = eidx.shape[-1]
+    rows = torch.arange(B)[:, None, None]
+    slot = ((eidx * B + rows) * C + pos_k)[keep_k]
+    src = x[:, :, None, :].expand(B, S, K, d)[keep_k]
+    x_e = torch.zeros((E * B * C, d), dtype=x.dtype)
+    x_e.index_copy_(0, slot, src)
+    return x_e
+
+
+def _routed(cap, dtype, seed=3):
+    """moe_block's inputs at the capacity factor ``cap`` (the smoke config's
+    8 experts, top-2), with the routing of its x."""
+    _, cfg = _configs(capacity_factor=CAPACITY[cap])
+    params = params_from_numpy(_moe_params(), device="cpu")
+    B, S = 2, 16
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(B, S, cfg.d_model)).astype(np.float32)).to(DTYPES[dtype][1])
+    x[0, 0, :4] = -0.0  # signed zeros are copied, not added
+    C = tmoe._capacity(S, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    probs = torch.softmax(x.float() @ params["router"], -1)
+    _, eidx = tmoe.top_k_gates(probs, cfg.top_k)
+    pos, keep = tmoe.expert_positions(eidx, cfg.n_experts, C)
+    return cfg, params, x, eidx, pos, keep, C
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cap", CAPACITY)
+def test_static_dispatch_equals_the_mask_dispatch_bit_for_bit(cap, dtype):
+    """The buffer, and moe_block's output and aux losses, equal the mask
+    dispatch's bit for bit, where choices are dropped (cf 0.25) too."""
+    cfg, params, x, eidx, pos, keep, C = _routed(cap, dtype)
+    E = cfg.n_experts
+    if cap == "cf 0.25 drops":
+        assert 0 < int((~keep).sum()) < keep.numel()
+    got = tmoe._dispatch(x, eidx, pos, keep, E, C)
+    want = _mask_dispatch(x, eidx, pos, keep, E, C)
+    assert got.shape == want.shape and got.dtype == x.dtype
+    assert torch.equal(got.view(torch.int16 if dtype == "bfloat16" else torch.int32),
+                       want.view(torch.int16 if dtype == "bfloat16" else torch.int32))
+    y, aux = tmoe.moe_block(params, cfg, TSharder(None), x)
+    orig = tmoe._dispatch
+    try:
+        tmoe._dispatch = _mask_dispatch
+        y_mask, aux_mask = tmoe.moe_block(params, cfg, TSharder(None), x)
+    finally:
+        tmoe._dispatch = orig
+    assert torch.equal(y, y_mask)
+    for key in aux:
+        assert torch.equal(aux[key], aux_mask[key])
+
+
+class _OpLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """The aten ops a call runs, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func._overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_moe_block_traces_under_fake_tensors_without_nonzero():
+    """Under ``FakeTensorMode`` (no data, so no shape that depends on it)
+    moe_block traces and runs no ``nonzero``; the mask dispatch cannot."""
+    from torch._subclasses.fake_tensor import (DynamicOutputShapeException,
+                                               FakeTensorMode)
+
+    cfg, params, x, eidx, pos, keep, C = _routed("cf 0.25 drops", "bfloat16")
+    with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+        fparams = tree_map(mode.from_tensor, params)
+        fx = mode.from_tensor(x)
+        log = _OpLog()
+        with log:
+            y, aux = tmoe.moe_block(fparams, cfg, TSharder(None), fx)
+        assert y.shape == x.shape and y.dtype == x.dtype
+        assert "index_copy_" in log.names and "nonzero" not in log.names
+        with pytest.raises(DynamicOutputShapeException):
+            _mask_dispatch(fx, *(mode.from_tensor(t) for t in (eidx, pos, keep)),
+                           cfg.n_experts, C)

@@ -21,7 +21,12 @@ Differences from the JAX engine, all in how the device is driven:
 * a model whose frontend is not ``token`` (qwen2-vl's patches) is refused
   at construction: the engine feeds token ids to the decode step, which
   such a model reads as embeddings (the JAX engine fails inside its
-  worker).
+  worker);
+* with the span sink armed (``runtime/spans.py``) each engine step records
+  ``engine.step`` (its active slots after admit) holding ``engine.admit``,
+  ``engine.dispatch`` (the token and position copies and the step's call)
+  and ``engine.sync`` (the argmax copy to the host), and each blocking
+  wait with no active slot ``engine.idle``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from repro_torch.core.threads import UsfRuntime, UsfTaskError
 from repro_torch.launch.inputs import make_decode_inputs
 from repro_torch.models.base import init_tree, resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.runtime import spans
 from repro_torch.runtime.sharding import Sharder
 from repro_torch.train.step import make_serve_step
 
@@ -191,14 +197,25 @@ class InferenceServer:
         remaining = np.zeros(B, np.int64)
         pending_tokens: list[list[int]] = [[] for _ in range(B)]
         cur = np.zeros(B, np.int64)
+        task = self.usf.current_task()
+        tid = task.tid if task is not None else None
+        clock = spans.clock
 
         while not self._stop:
+            emit = spans.emit
+            if emit is not None:
+                t0 = clock()
             # admit requests into free slots (continuous batching)
             for i in range(B):
                 if active[i] is None:
-                    req = self.queue.try_get() if any(
-                        a is not None for a in active
-                    ) else self.queue.get()  # block only when fully idle
+                    if any(a is not None for a in active):
+                        req = self.queue.try_get()
+                    else:  # block only when fully idle
+                        req = self.queue.get()
+                        if emit is not None:
+                            t = clock()
+                            emit((t0, t, "engine.idle", tid, (self.name, self.steps), None))
+                            t0 = t
                     if req is None:
                         if self._stop:
                             return
@@ -214,13 +231,23 @@ class InferenceServer:
                 continue
 
             # one engine step: each active slot advances one token
+            if emit is not None:
+                key = (self.name, self.steps)
+                t1 = clock()
+                emit((t0, t1, "engine.admit", tid, key, None))
             toks = torch.from_numpy(cur.astype(np.int32)).to(dev)
             p = torch.from_numpy(pos.astype(np.int32)).to(dev)
             if cfg.mrope_sections is not None:
                 p = p.expand(3, B)  # M-RoPE: three equal position streams
             logits, cache = self._step(self.params, cache, toks, p)
+            if emit is not None:
+                t2 = clock()
+                emit((t1, t2, "engine.dispatch", tid, key, None))
             # the device wait: one synchronising copy of the next tokens
             nxt = logits.argmax(dim=-1).cpu().numpy()
+            if emit is not None:
+                emit((t2, clock(), "engine.sync", tid, key, None))
+                n_active = sum(a is not None for a in active)
             self.steps += 1
 
             for i in range(B):
@@ -240,6 +267,8 @@ class InferenceServer:
                     self._retire(req)
                     req.done.set()
                     active[i] = None
+            if emit is not None:
+                emit((t0, clock(), "engine.step", tid, key, n_active))
 
 
 class Gateway:

@@ -15,7 +15,10 @@ differentiates (``kernels/ops.py``).
 
 Nothing in here checkpoints: the preemption point is the step's call site,
 which the trainer and the serving engine wrap with
-``repro_torch.core.autockpt`` (docs/PREEMPTION.md tier 3).
+``repro_torch.core.autockpt`` (docs/PREEMPTION.md tier 3). With the span
+sink armed (``runtime/spans.py``) the train step records a
+``train.fwd_bwd`` span a microbatch and one ``train.optimizer``, under the
+task and step its caller bound.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from repro_torch.models.base import torch_dtype, tree_leaves, tree_unflatten
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.runtime import spans
 from repro_torch.runtime.sharding import is_dtensor
 from repro_torch.train.loss import lm_loss
 
@@ -128,15 +132,24 @@ def make_train_step(
             return _train_step(state, batch)
 
     def _train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        emit = spans.emit
+        if emit is not None:
+            tid, key = spans.bound()
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         if microbatches == 1:
+            if emit is not None:
+                t = spans.clock()
             grads, metrics = grads_of(params, leaves, batch)
+            if emit is not None:
+                emit((t, spans.clock(), "train.fwd_bwd", tid, key, 0))
         else:
             grads, mlist = None, []
-            for mb in _split_microbatches(batch, microbatches):
+            for j, mb in enumerate(_split_microbatches(batch, microbatches)):
+                if emit is not None:
+                    t = spans.clock()
                 g, m = grads_of(params, leaves, mb)
                 if grads is None:  # the first microbatch's, in accum_dtype
                     grads = [gi.to(adt, copy=True) for gi in g]
@@ -145,6 +158,8 @@ def make_train_step(
                         acc.add_(gi.to(adt))
                 mlist.append(m)
                 del g
+                if emit is not None:
+                    emit((t, spans.clock(), "train.fwd_bwd", tid, key, j))
             for acc in grads:
                 acc.div_(microbatches)
             metrics = {k: torch.stack([m[k] for m in mlist]).mean(0)
@@ -153,6 +168,8 @@ def make_train_step(
         # microbatches (a no-op for plain tensors)
         grads = [_reduced(g, p) for g, p in zip(grads, leaves)]
 
+        if emit is not None:
+            t = spans.clock()
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
         params, opt_state = opt.update(tree_unflatten(params, grads),
@@ -160,6 +177,8 @@ def make_train_step(
         metrics["grad_norm"] = torch.sqrt(
             sum(torch.sum(torch.square(g.float())) for g in grads))
         metrics["lr"] = lr
+        if emit is not None:
+            emit((t, spans.clock(), "train.optimizer", tid, key, None))
         return ({"step": state["step"] + 1, "params": params, "opt": opt_state},
                 metrics)
 

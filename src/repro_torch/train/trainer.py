@@ -1,25 +1,25 @@
-"""Production training loop: checkpoint/restart, async saves, straggler
-mitigation hooks, co-execution awareness. Port of
-``repro/train/trainer.py``.
+"""Production training loop: checkpoint/restart, async saves, co-execution
+awareness, spans of each step. Port of ``repro/train/trainer.py``.
 
 Fault-tolerance model:
   * deterministic data stream keyed by step — restart replays exactly;
   * atomic async checkpoints every ``ckpt_every`` steps, on the JAX
     package's layout (a JAX checkpoint resumes here, and back);
   * ``Trainer.run`` resumes from the latest checkpoint automatically;
-  * straggler mitigation: per-step wall times feed an EWMA detector;
   * under a UsfRuntime, the step's call site is an auto-checkpoint and the
     loader's wait a cooperative blocking point, so a co-located job can
     fill this job's stalls (§5.6).
 
 The step runs on ``device`` (None: the CUDA card) and updates the state in
-place; ``float(metrics["loss"])`` is its one host sync.
+place; ``float(metrics["loss"])`` is its one host sync. With the span sink
+armed (``runtime/spans.py``) each step records ``train.step`` (the
+loader's wait, the copy to the device, the step's dispatch and the sync
+as its children) and the yield after it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import torch
@@ -29,6 +29,7 @@ from repro_torch.core.autockpt import preemptible
 from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMDataset, to_tensors
 from repro_torch.models.base import init_tree, resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.runtime import spans
 from repro_torch.runtime.sharding import Sharder
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -48,28 +49,6 @@ class TrainerConfig:
     seed: int = 0
 
 
-class StragglerDetector:
-    """EWMA per-step wall-time watchdog; flags steps >= factor x EWMA."""
-
-    def __init__(self, factor: float = 2.0, alpha: float = 0.2):
-        self.factor = factor
-        self.alpha = alpha
-        self.ewma: Optional[float] = None
-        self.flagged: list[int] = []
-
-    def observe(self, step: int, dt: float) -> bool:
-        if self.ewma is None:
-            self.ewma = dt
-            return False
-        slow = dt > self.factor * self.ewma
-        if slow:
-            self.flagged.append(step)
-        # EWMA excludes flagged outliers so one straggler doesn't mask the next
-        if not slow:
-            self.ewma = (1 - self.alpha) * self.ewma + self.alpha * dt
-        return slow
-
-
 class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, *, sharder: Optional[Sharder] = None,
                  usf=None, on_step: Optional[Callable[[int, dict], None]] = None,
@@ -81,7 +60,6 @@ class Trainer:
         self.usf = usf
         self.on_step = on_step
         self.model = build_model(cfg)
-        self.straggler = StragglerDetector()
         self.metrics_log: list[dict] = []
         #: (step, host copy s, write s) of each checkpoint ``run`` saved
         self.ckpt_times: list[tuple[int, float, float]] = []
@@ -121,25 +99,50 @@ class Trainer:
         ds = SyntheticLMDataset(self.cfg, global_batch=tcfg.global_batch,
                                 seq_len=tcfg.seq_len, seed=tcfg.seed)
         loader = PrefetchLoader(ds, start_step=start, usf=self.usf)
+        task = self.usf.current_task() if self.usf is not None else None
+        tid, job = (task.tid, task.job.name) if task is not None else (None, "trainer")
+        clock = spans.clock
         try:
             for step in range(start, min(stop_at or tcfg.steps, tcfg.steps)):
-                batch = to_tensors(loader.get(), self.device)
-                t0 = time.monotonic()
+                emit = spans.emit
+                if emit is not None:
+                    key = (job, step + 1)
+                    spans.bind(tid, key)
+                    t_step = clock()
+                raw = loader.get()
+                if emit is not None:
+                    t = clock()
+                    emit((t_step, t, "train.loader", tid, key, None))
+                batch = to_tensors(raw, self.device)
+                t0 = clock()
+                if emit is not None:
+                    emit((t, t0, "train.h2d", tid, key, None))
                 state, metrics = self._step_fn(state, batch)
+                if emit is not None:
+                    t = clock()
+                    emit((t0, t, "train.dispatch", tid, key, None))
                 loss = float(metrics["loss"])  # sync point
-                dt = time.monotonic() - t0
-                slow = self.straggler.observe(step, dt)
-                rec = {"step": step + 1, "loss": loss, "wall_s": dt,
-                       "straggler": slow}
+                t1 = clock()
+                if emit is not None:
+                    emit((t, t1, "train.sync", tid, key, None))
+                rec = {"step": step + 1, "loss": loss, "wall_s": t1 - t0}
                 self.metrics_log.append(rec)
-                if self.on_step:
-                    self.on_step(step + 1, rec)
-                if ckpt and (step + 1) % tcfg.ckpt_every == 0:
-                    ckpt.save(state, step + 1)
-                if self.usf is not None and self.usf.current_task() is not None:
+                try:
+                    if self.on_step:
+                        self.on_step(step + 1, rec)
+                    if ckpt and (step + 1) % tcfg.ckpt_every == 0:
+                        ckpt.save(state, step + 1)
+                finally:  # a callback that ends the run still ends the step's span
+                    if emit is not None:
+                        emit((t_step, clock(), "train.step", tid, key, None))
+                if task is not None:
                     # scheduling point between steps: lets SCHED_COOP rotate
                     # jobs at quantum boundaries (§4.1)
+                    if emit is not None:
+                        t = clock()
                     self.usf.yield_now()
+                    if emit is not None:
+                        emit((t, clock(), "train.yield", tid, key, None))
         finally:
             loader.stop()
             if ckpt:

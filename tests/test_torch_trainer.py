@@ -30,7 +30,7 @@ from repro_torch.core.threads import UsfRuntime
 from repro_torch.core.topology import Topology
 from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMDataset
 from repro_torch.models.base import tree_leaves
-from repro_torch.train.trainer import StragglerDetector, Trainer, TrainerConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 # two intra-op threads at most: the timing-bound reference tests in the
 # other pytest workers share this host's cores
@@ -175,15 +175,6 @@ def test_async_checkpointer_raises_the_writers_error_on_wait(tmp_path):
 # --------------------------------------------------------------------------- #
 # the Trainer
 # --------------------------------------------------------------------------- #
-def test_straggler_detector():
-    det = StragglerDetector(factor=2.0)
-    flags = [det.observe(i, 0.1) for i in range(5)]
-    assert not any(flags)
-    assert det.observe(5, 0.5)  # 5x the EWMA
-    assert det.flagged == [5]
-    assert not det.observe(6, 0.1)  # recovered
-
-
 def test_trainer_loss_decreases():
     cfg = get_smoke("smollm_360m")
     t = Trainer(cfg, TrainerConfig(steps=50, global_batch=4, seq_len=64,
